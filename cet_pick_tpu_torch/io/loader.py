@@ -1,0 +1,149 @@
+"""Tomogram loading + uint8 preprocessing — a copy of
+``cet_pick_tpu/io/loader.py:26-195``.
+
+The numpy code is copied as it is, so that ``preprocess_quantized`` returns
+byte-identical ``(u8, lo, hi)``. Semantics of reference
+cet_pick/utils/loader.py:16-121:
+
+* ``quantize``       — loader.py:16-25  (linear [mi,ma] -> uint8 with clipping)
+* ``load_rec``       — loader.py:27-88  (axis reorder to (z, x, y), optional
+                       z-compression by pairwise max, global standardization)
+* ``preprocess_quantized`` — the tomogram path of loader.py:90-121, keeping
+                       the uint8 representation for dequantization on the
+                       device
+
+All of this is host-side numpy: it runs once per tomogram.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from scipy.ndimage import gaussian_filter
+
+from cet_pick_tpu_torch.io.mrc import read_mrc, read_mrc_shape
+
+
+def quantize(x, mi=-2.5, ma=2.0, dtype=np.uint8, inplace=False):
+    """Linear map [mi, ma] -> [0, 255] with clipping + rounding (loader.py:16-25).
+
+    ``inplace=True`` (float ndarray input we own) runs the identical op
+    sequence without temporaries — subtract, multiply by 255, divide, in the
+    reference's order, so results are bit-identical.
+    """
+    if mi is None:
+        mi = x.min()
+    if ma is None:
+        ma = x.max()
+    r = ma - mi
+    if inplace:
+        x -= mi
+        x *= 255  # (x - mi) * 255 == 255 * (x - mi) exactly
+        x /= r
+    else:
+        x = 255 * (x - mi) / r
+    np.clip(x, 0, 255, out=x)  # x is owned on both branches by now
+    np.round(x, out=x)
+    return x.astype(dtype)
+
+
+def _standardize(x, axis=None, inplace=False):
+    m = x.mean(axis=axis, keepdims=axis is not None)
+    s = x.std(axis=axis, keepdims=axis is not None)
+    # constant input (zero std) -> zeros instead of NaN
+    s = np.where(s == 0, 1.0, s)
+    if inplace:  # identical elementwise ops, no (z, x, y) temporaries
+        x -= m
+        x /= s
+        return x
+    return (x - m) / s
+
+
+def predict_loaded_shape(path, order="xyz", compress=False):
+    """Shape ``load_rec(path, order, compress)`` will return, from the MRC
+    header alone (no data read)."""
+    a0, a1, a2 = read_mrc_shape(path)  # raw (nz, ny, nx) array axes
+    # mirror load_rec's axis moves on the shape tuple
+    if order == "zxy":
+        d, h, w = a0, a1, a2
+    elif order == "xzy":  # swapaxes(2,1) then moveaxis(2, 0)
+        d, h, w = a1, a0, a2
+    elif order == "xyz":  # moveaxis(2, 0)
+        d, h, w = a2, a0, a1
+    elif order == "yxz":  # swapaxes(1,0) then moveaxis(2, 0)
+        d, h, w = a2, a1, a0
+    else:
+        raise ValueError(f"unknown axis order {order!r}")
+    if compress:
+        d = (d + 1) // 2  # _compress_z: pairs max-merged, odd tail kept
+    return d, h, w
+
+
+def _compress_z(vol):
+    """Max over consecutive z-slice pairs; odd tails keep the single slice.
+
+    Matches loader.py:44-51 (``np.max(rec[..., i:i+2])`` for i in 0,2,...).
+    """
+    z = vol.shape[0]
+    even = vol[: z - (z % 2)]
+    out = np.maximum(even[0::2], even[1::2])
+    if z % 2:
+        out = np.concatenate([out, vol[-1:]], axis=0)
+    return out
+
+
+def load_rec(path, order="xyz", compress=False, is_tilt=False):
+    """Load an MRC volume -> float array of shape (z, x, y).
+
+    ``order`` names the semantic order of the raw array's axes. The reference
+    (loader.py:27-88) reorders so the output stacks z-slices of shape (x, y):
+
+    * ``xzy``: raw (x, z, y) -> swap axes 2,1 -> (x, y, z) -> transpose to (z, x, y)
+    * ``xyz``: raw (x, y, z) -> transpose to (z, x, y)
+    * ``yxz``: raw (y, x, z) -> swap axes 1,0 -> (x, y, z) -> (z, x, y)
+    * ``zxy``: raw already (z, x, y)
+
+    With ``compress``, consecutive z-slice pairs are max-merged. Tilt series
+    are standardized per slice; tomograms globally.
+    """
+    rec = np.asarray(read_mrc(path), dtype=np.float64)
+    if order in ("xzy", "xyz", "yxz"):
+        if order == "xzy":
+            rec = np.swapaxes(rec, 2, 1)
+        elif order == "yxz":
+            rec = np.swapaxes(rec, 1, 0)
+        # rec is now semantically (x, y, z); stack z-slices -> (z, x, y)
+        vol = np.moveaxis(rec, 2, 0)
+    elif order == "zxy":
+        vol = rec
+    else:
+        raise ValueError(f"unknown axis order {order!r}")
+
+    if compress:
+        vol = _compress_z(vol)
+    vol = np.ascontiguousarray(vol)
+
+    if is_tilt:
+        vol = _standardize(vol, axis=(1, 2), inplace=True)
+    else:
+        vol = _standardize(vol, inplace=True)
+    return vol
+
+
+def preprocess_quantized(vol, denoise=0):
+    """Tomogram preprocessing that keeps the uint8 representation.
+
+    Returns (u8, lo, hi) such that the reference's float preprocessing
+    (standardize -> quantize -> min-max to [0, 1]) equals
+    ``(u8 - lo) / (hi - lo)``. Shipping the uint8 volume to the device and
+    dequantizing there moves 4x fewer bytes host -> device.
+    """
+    vol = np.array(vol, dtype=np.float64)  # owned copy -> in-place passes
+    if denoise > 0:
+        vol = gaussian_filter(vol, sigma=denoise)
+        vol = _standardize(vol, inplace=True)
+        q = quantize(vol, mi=-3, ma=3, inplace=True)
+    else:
+        vol = _standardize(vol, inplace=True)
+        q = quantize(vol, inplace=True)
+    lo, hi = float(q.min()), float(q.max())
+    return q, lo, hi
