@@ -2,26 +2,34 @@
 
 Ported so far:
 
+  train   refinement training, ``--task semi`` (reference main.py semi):
+          paired crops around annotated particles, PU focal (or focal
+          under --pn) + debiased contrastive + flip consistency, Adam;
+          writes ``model_last.pth`` / ``model_best.pth`` + ``opt.json`` and a
+          log under ``<root_dir>/exp/semi/<exp_id>``
   test    refinement inference (reference test.py semi): an image list of
           .rec/.mrc volumes -> ``{name}.txt`` picks (``x\\tz\\ty[\\tscore]``)
           and ``{name}_hm.mrc`` heatmaps, from a ``.pth`` checkpoint
+          (default ``<root_dir>/exp/semi/<exp_id>/model_last.pth``)
 
 ``--device {cuda,cpu}`` picks the device (default cuda; asking for cuda
-without one raises). Every other command of ``python -m cet_pick_tpu``
-exits non-zero with "not yet ported".
+without one raises). Every other command of ``python -m cet_pick_tpu``, and
+``train`` for any other task, exits non-zero with "not yet ported".
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import time
 
 from cet_pick_tpu_torch.cli.common import add_config_arguments, config_from_args
 from cet_pick_tpu_torch.config import Config
 
 # the JAX package's other commands, in its order (cet_pick_tpu/__main__.py)
 NOT_PORTED = (
-    "train", "classify-test", "watch", "explore", "moco", "classify",
+    "classify-test", "watch", "explore", "moco", "classify",
     "fewshot", "denoise", "embed", "scan", "scan-finetune", "plot2d",
     "phoenix", "to-coords", "sublabels", "visualize3d", "merge", "pr-curve",
     "remove-golds", "gen-files", "extract-spectrum", "match-spectrum",
@@ -29,18 +37,63 @@ NOT_PORTED = (
 )
 
 
-def cmd_test(argv):
-    parser = argparse.ArgumentParser(prog="cet_pick_tpu_torch test")
-    add_config_arguments(parser, Config(task="semi"))
+def _parser(prog, defaults):
+    parser = argparse.ArgumentParser(prog=prog)
+    add_config_arguments(parser, defaults)
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="device to run on (default: cuda)")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def cmd_train(argv):
+    """``train --task semi`` (cet_pick_tpu/__main__.py:84-136)."""
+    args = _parser("cet_pick_tpu_torch train",
+                   Config(task="semi", contrastive=True)).parse_args(argv)
+    cfg = config_from_args(args)
+    if cfg.task != "semi":
+        print(f"train --task {cfg.task!r} is not yet ported to "
+              f"cet_pick_tpu_torch (it trains --task semi); run it with "
+              f"`python -m cet_pick_tpu train`")
+        return 2
+    if cfg.profile_dir:
+        raise NotImplementedError(
+            "--profile_dir needs utils/profiling.py, which is not ported yet "
+            "(ROADMAP Queue 1 item 8)")
+    for f in (cfg.train_img_txt, cfg.train_coord_txt):
+        if not os.path.exists(os.path.join(cfg.data_dir, f)):
+            raise FileNotFoundError(os.path.join(cfg.data_dir, f))
+    from cet_pick_tpu_torch.data.refine_dataset import RefineDataset
+    from cet_pick_tpu_torch.infer.detector import set_float32_precision
+    from cet_pick_tpu_torch.train.refine import prepare_refine, train_refine
+    from cet_pick_tpu_torch.utils.logger import Logger
+
+    set_float32_precision(cfg.dtype)
+    logger = Logger(cfg)
+    log = logger.log
+    t0 = time.perf_counter()
+    train_ds = RefineDataset(cfg, "train")
+    val_ds = RefineDataset(cfg, "val") if cfg.val_intervals > 0 else None
+    log(f"dataset build: {time.perf_counter() - t0:.3f}s "
+        f"({len(train_ds)} training samples)")
+    prepared = prepare_refine(cfg, log_fn=log, device=args.device)
+    train_refine(cfg, train_ds, val_dataset=val_ds, log_fn=log,
+                 prepared=prepared)
+    logger.close()
+
+
+def cmd_test(argv):
+    args = _parser("cet_pick_tpu_torch test",
+                   Config(task="semi")).parse_args(argv)
+    cfg = config_from_args(args)
+    if not cfg.load_model:
+        # the port's train checkpoint (JAX: the msgpack directory model_last)
+        cfg.load_model = os.path.join(cfg.save_dir, "model_last.pth")
     from cet_pick_tpu_torch.infer.detector import run_test
 
-    run_test(config_from_args(args), device=args.device)
+    run_test(cfg, device=args.device)
 
 
-COMMANDS = {"test": cmd_test}
+COMMANDS = {"train": cmd_train, "test": cmd_test}
 
 
 def main(argv=None):

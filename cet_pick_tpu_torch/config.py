@@ -3,7 +3,8 @@
 Field-for-field the JAX package's ``Config``, with the same defaults,
 ``finalize()`` and JSON round-trip, so that the ``opt.json`` a JAX
 checkpoint embeds loads here unchanged. Options that only the port has
-(such as the device) are CLI arguments, not fields.
+(such as the device) are CLI arguments, not fields. One default differs:
+``--resume`` loads ``save_dir/model_last.pth``, the port's checkpoint.
 
 The reference concentrates ~70 flags in cet_pick/opts.py (opts.py:17-189) and
 derives per-task heads / default resolutions / experiment dirs post-parse
@@ -169,7 +170,9 @@ class Config:
                 "split needs its coordinate table"
             )
         if self.resume and not self.load_model:
-            self.load_model = os.path.join(self.save_dir, "model_last")
+            # the port's train checkpoints are .pth files (JAX: the msgpack
+            # directory model_last)
+            self.load_model = os.path.join(self.save_dir, "model_last.pth")
         return self
 
     # -- serialization (written as opt.json beside a checkpoint)

@@ -1,5 +1,5 @@
 """Tomogram loading + uint8 preprocessing — a copy of
-``cet_pick_tpu/io/loader.py:26-195``.
+``cet_pick_tpu/io/loader.py:26-260``.
 
 The numpy code is copied as it is, so that ``preprocess_quantized`` returns
 byte-identical ``(u8, lo, hi)``. Semantics of reference
@@ -11,6 +11,8 @@ cet_pick/utils/loader.py:16-121:
 * ``preprocess_quantized`` — the tomogram path of loader.py:90-121, keeping
                        the uint8 representation for dequantization on the
                        device
+* ``QuantizedTomo`` / ``load_tomos_quantized_from_list`` — uint8-resident
+                       training volumes whose crops dequantize bit-identically
 
 All of this is host-side numpy: it runs once per tomogram.
 """
@@ -147,3 +149,61 @@ def preprocess_quantized(vol, denoise=0):
         q = quantize(vol, inplace=True)
     lo, hi = float(q.min()), float(q.max())
     return q, lo, hi
+
+
+class QuantizedTomo:
+    """A preprocessed tomogram kept uint8-resident in host RAM (a copy of
+    ``cet_pick_tpu/io/loader.py:198-244``).
+
+    The preprocessed volume takes only 256 distinct values — it is
+    ``(q - lo) / (hi - lo)`` for the ``(q, lo, hi)`` of
+    ``preprocess_quantized`` — so a training dataset holds it quantized (4x
+    less host RAM than float32) and dequantizes crops on access, with the
+    same float64 ops as JAX's, so crops are bit-identical.
+
+    Supports the ndarray surface the crop datasets use: ``.shape``,
+    ``.ndim``, slicing (returns a dequantized float32 array) and
+    ``.astype``.
+    """
+
+    def __init__(self, u8, lo, hi):
+        self.u8 = u8
+        self.lo = float(lo)
+        self.hi = float(hi)
+
+    @property
+    def shape(self):
+        return self.u8.shape
+
+    @property
+    def ndim(self):
+        return self.u8.ndim
+
+    def _dequant(self, q):
+        x = q.astype(np.float64)
+        x -= self.lo
+        x /= (self.hi - self.lo) or 1.0  # constant volume -> zeros
+        return x.astype(np.float32)
+
+    def __getitem__(self, idx):
+        return self._dequant(self.u8[idx])
+
+    def astype(self, dtype):
+        return self._dequant(self.u8).astype(dtype, copy=False)
+
+    def __array__(self, dtype=None, copy=None):
+        out = self._dequant(self.u8)
+        return out.astype(dtype, copy=False) if dtype is not None else out
+
+
+def load_tomos_quantized_from_list(names, paths, order="xzy", compress=False,
+                                   denoise=0):
+    """Load + preprocess tomograms -> ``{name: QuantizedTomo}``
+    (loader.py:247-260). Tomograms only: the tilt path normalizes per
+    slice, which has no single (lo, hi)."""
+    images = {}
+    for name, path in zip(names, paths):
+        im = load_rec(path, order=order, compress=compress, is_tilt=False)
+        q, lo, hi = preprocess_quantized(im, denoise=denoise)
+        images[name] = QuantizedTomo(q, lo, hi)
+    return images

@@ -112,7 +112,12 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
             f"export-torch --load_model DIR --out model.pth`, or pass a "
             f"reference model_N.pth")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    raw = ckpt.get("state_dict", ckpt)
+    return normalize_state_dict(ckpt.get("state_dict", ckpt))
+
+
+def normalize_state_dict(raw) -> Dict[str, torch.Tensor]:
+    """A checkpoint's state dict with ``module.`` prefixes stripped and the
+    missing ``num_batches_tracked`` buffers added as 0."""
     sd = {(k[7:] if k.startswith("module.") else k): v
           for k, v in raw.items() if isinstance(v, torch.Tensor)}
     for k in [k for k in sd if k.endswith(".running_mean")]:

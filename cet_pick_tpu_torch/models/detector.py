@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cet_pick_tpu_torch.models.unet import UNet2D
+from cet_pick_tpu_torch.models.unet import BatchNorm2d, UNet2D
 from cet_pick_tpu_torch.ops.ztap_conv import (
     ztap_dilated_conv,
     ztap_dilated_conv_plain,
@@ -108,7 +108,7 @@ class TomoPickNet(nn.Module):
         self.heads = dict(heads)
         self.n_blocks = n_blocks
         self.conv1 = _Stem(stem_features)
-        self.bn1 = nn.BatchNorm2d(stem_features, eps=1e-5)
+        self.bn1 = BatchNorm2d(stem_features)
         self.unet = UNet2D(n_blocks, start_filts=32, out_channels=32,
                            in_channels=stem_features)
         self.feature_head = FeatureHead3D(32, head_conv)

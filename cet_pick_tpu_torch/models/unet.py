@@ -20,6 +20,32 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that keeps its running statistics as flax's
+    ``nn.BatchNorm(momentum=0.9)`` does (unet.py:37, detector.py:297).
+
+    In train mode it normalizes with the batch statistics, like the stock
+    module, but updates ``ra = 0.9 * ra + 0.1 * stat`` with the *biased*
+    batch variance; torch's own update uses the unbiased n/(n-1) one. The
+    momentum (0.1, torch's convention), eps, parameters and buffers
+    (``num_batches_tracked`` included) are the stock module's, so reference
+    ``.pth`` files load with ``strict=True``. Eval mode is unchanged."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
+
+
 def ConvNormAct(conv: nn.Conv2d, norm: nn.BatchNorm2d, x):
     """3x3 conv -> BatchNorm -> ReLU (JAX ``ConvNormAct``, unet.py:23-43).
 
@@ -38,9 +64,9 @@ class DownBlock(nn.Module):
     def __init__(self, in_channels: int, features: int, pooling: bool = True):
         super().__init__()
         self.conv1 = _conv3x3(in_channels, features)
-        self.norm0 = nn.BatchNorm2d(features, eps=1e-5)
+        self.norm0 = BatchNorm2d(features)
         self.conv2 = _conv3x3(features, features)
-        self.norm1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.norm1 = BatchNorm2d(features)
         self.pooling = pooling
 
     def forward(self, x):
@@ -60,11 +86,11 @@ class UpBlock(nn.Module):
     def __init__(self, in_channels: int, features: int):
         super().__init__()
         self.upconv = nn.ConvTranspose2d(in_channels, features, 2, stride=2)
-        self.norm0 = nn.BatchNorm2d(features, eps=1e-5)
+        self.norm0 = BatchNorm2d(features)
         self.conv1 = _conv3x3(2 * features, features)
-        self.norm1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.norm1 = BatchNorm2d(features)
         self.conv2 = _conv3x3(features, features)
-        self.norm2 = nn.BatchNorm2d(features, eps=1e-5)
+        self.norm2 = BatchNorm2d(features)
 
     def forward(self, x, skip):
         x = ConvNormAct(self.upconv, self.norm0, x)

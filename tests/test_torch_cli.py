@@ -104,3 +104,49 @@ def test_cli_port_matches_jax(tmp_path):
         port = _read_rows(tmp_path / "port" / out / f"{name}.txt")
         assert len(ref) > 20
         assert_picks_agree(port, ref, hm_ref, kth)
+
+
+def test_train_cli_checkpoint_serves_both_test_clis(tmp_path):
+    """``train`` on the CPU writes model_last.pth, model_best.pth, opt.json
+    and a log; the port's ``test`` picks from model_last.pth by default and
+    the JAX ``test`` loads the same file with --load_model, and their
+    heatmaps agree within 5e-5. ``--no-contrastive`` keeps the run short:
+    the CPU plain gram of a 6 x 64 x 64 pair (M = 24,576) takes ~35 s a
+    step on one thread, and tests/test_torch_train.py holds the contrastive
+    step to JAX's."""
+    rng = np.random.default_rng(5)
+    data = tmp_path / "data"
+    data.mkdir()
+    vol = _synthetic_volume(rng, d=16)
+    write_mrc(str(data / "syn0.rec"), vol)
+    (data / "train_images.txt").write_text(
+        f"image_name\trec_path\nsyn0\t{data / 'syn0.rec'}\n")
+    (data / "test_images.txt").write_text(
+        f"image_name\trec_path\nsyn0\t{data / 'syn0.rec'}\n")
+    pts = [(int(x), int(y), int(z)) for x, y, z in zip(
+        rng.integers(34, 62, 6), rng.integers(34, 62, 6), rng.integers(4, 12, 6))]
+    (data / "train_coords.txt").write_text(
+        "image_name\tx_coord\ty_coord\tz_coord\n"
+        + "".join(f"syn0\t{x}\t{y}\t{z}\n" for x, y, z in pts))
+    root = tmp_path / "run"
+    common = ["--arch", "unet_2", "--order", "zxy", "--data_dir", str(data),
+              "--root_dir", str(root), "--bbox", "8"]
+    assert main(["train", "--device", "cpu", "--num_epochs", "1",
+                 "--num_iters", "2", "--val_intervals", "1",
+                 "--no-contrastive", *common]) == 0
+    exp = root / "exp" / "semi" / "default"
+    for f in ("model_last.pth", "model_best.pth", "opt.json"):
+        assert (exp / f).exists(), f
+    assert list(exp.glob("logs_*/log.txt"))
+
+    test_args = ["--tile", "8", "512", "512", "--out_thresh", "0.0",
+                 "--cutoff_z", "0"]
+    assert main(["test", "--device", "cpu", *common, *test_args]) == 0
+    assert jax_main(["test", *common, *test_args, "--root_dir",
+                     str(tmp_path / "jax"), "--load_model",
+                     str(exp / "model_last.pth")]) == 0
+    hm = read_mrc(str(exp / "output" / "syn0_hm.mrc"))
+    hm_ref = read_mrc(str(tmp_path / "jax" / "exp" / "semi" / "default"
+                          / "output" / "syn0_hm.mrc"))
+    assert hm.shape == hm_ref.shape == (48, 16, 48)
+    np.testing.assert_allclose(hm, hm_ref, rtol=0, atol=5e-5)

@@ -41,7 +41,7 @@ def test_imports_every_module_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 30  # the train slice's modules too
 
 
 def test_no_jax_package_imports():
@@ -66,9 +66,25 @@ def test_cuda_device_without_cuda_raises():
 
 @pytest.mark.parametrize("cmd", ["train", "export-torch", "watch"])
 def test_unported_commands_exit_nonzero(cmd, capsys):
-    assert cmd in NOT_PORTED
-    assert main([cmd]) == 2
+    """Unported commands, and ``train`` for the tasks other than semi."""
+    if cmd == "train":
+        assert cmd not in NOT_PORTED
+        for task in ("semiclass", "tomo", "cr", "semi3d"):
+            assert main([cmd, "--task", task]) == 2
+    else:
+        assert cmd in NOT_PORTED
+        assert main([cmd]) == 2
     assert "not yet ported" in capsys.readouterr().out
+
+
+def test_train_on_cuda_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cet_pick_tpu_torch.train.refine import prepare_refine
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        prepare_refine(Config(task="semi", arch="unet_2").finalize(),
+                       device="cuda")
 
 
 def test_profile_dir_raises(tmp_path):
