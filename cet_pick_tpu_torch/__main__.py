@@ -6,7 +6,13 @@ Ported so far:
           paired crops around annotated particles, PU focal (or focal
           under --pn) + debiased contrastive + flip consistency, Adam;
           writes ``model_last.pth`` / ``model_best.pth`` + ``opt.json`` and a
-          log under ``<root_dir>/exp/semi/<exp_id>``
+          log under ``<root_dir>/exp/semi/<exp_id>``.
+          Supervised training, ``--task cr --pn`` (focal + single-view
+          pixel supcon) and ``--task tomo --pn`` (focal + gathered-site
+          supcon), ``unet_N`` only; ``model_last.pth`` under
+          ``<root_dir>/exp/<task>/<exp_id>``.
+          Detectors: ``--arch unet_N`` and ``--arch unetw_N`` (output
+          stride 4, 128 channels)
   test    refinement inference (reference test.py semi): an image list of
           .rec/.mrc volumes -> ``{name}.txt`` picks (``x\\tz\\ty[\\tscore]``)
           and ``{name}_hm.mrc`` heatmaps, from a ``.pth`` checkpoint
@@ -14,7 +20,7 @@ Ported so far:
 
 ``--device {cuda,cpu}`` picks the device (default cuda; asking for cuda
 without one raises). Every other command of ``python -m cet_pick_tpu``, and
-``train`` for any other task, exits non-zero with "not yet ported".
+``train --task semiclass|semi3d``, exits non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -46,14 +52,14 @@ def _parser(prog, defaults):
 
 
 def cmd_train(argv):
-    """``train --task semi`` (cet_pick_tpu/__main__.py:84-136)."""
+    """``train --task semi|tomo|cr`` (cet_pick_tpu/__main__.py:84-136)."""
     args = _parser("cet_pick_tpu_torch train",
                    Config(task="semi", contrastive=True)).parse_args(argv)
     cfg = config_from_args(args)
-    if cfg.task != "semi":
+    if cfg.task not in ("semi", "tomo", "cr"):
         print(f"train --task {cfg.task!r} is not yet ported to "
-              f"cet_pick_tpu_torch (it trains --task semi); run it with "
-              f"`python -m cet_pick_tpu train`")
+              f"cet_pick_tpu_torch (it trains --task semi, tomo and cr); run "
+              f"it with `python -m cet_pick_tpu train`")
         return 2
     if cfg.profile_dir:
         raise NotImplementedError(
@@ -65,6 +71,7 @@ def cmd_train(argv):
     from cet_pick_tpu_torch.data.refine_dataset import RefineDataset
     from cet_pick_tpu_torch.infer.detector import set_float32_precision
     from cet_pick_tpu_torch.train.refine import prepare_refine, train_refine
+    from cet_pick_tpu_torch.train.supervised import train_supervised
     from cet_pick_tpu_torch.utils.logger import Logger
 
     set_float32_precision(cfg.dtype)
@@ -72,12 +79,17 @@ def cmd_train(argv):
     log = logger.log
     t0 = time.perf_counter()
     train_ds = RefineDataset(cfg, "train")
-    val_ds = RefineDataset(cfg, "val") if cfg.val_intervals > 0 else None
+    # the supervised loops have no validation (supervised.py:194-278)
+    val_ds = (RefineDataset(cfg, "val")
+              if cfg.task == "semi" and cfg.val_intervals > 0 else None)
     log(f"dataset build: {time.perf_counter() - t0:.3f}s "
         f"({len(train_ds)} training samples)")
     prepared = prepare_refine(cfg, log_fn=log, device=args.device)
-    train_refine(cfg, train_ds, val_dataset=val_ds, log_fn=log,
-                 prepared=prepared)
+    if cfg.task == "semi":
+        train_refine(cfg, train_ds, val_dataset=val_ds, log_fn=log,
+                     prepared=prepared)
+    else:
+        train_supervised(cfg, train_ds, log_fn=log, prepared=prepared)
     logger.close()
 
 

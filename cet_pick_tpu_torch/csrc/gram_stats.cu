@@ -1,23 +1,32 @@
 // Fused row statistics of the contrastive similarity matrix, forward and
 // backward, in float32 — the debiased contrastive loss of refinement
-// training (default step) and the supervised contrastive loss (--pn step).
+// training (default step), the supervised contrastive loss (--pn step) and
+// the single-view supcon of supervised training (--task cr).
 //
 // Replaces the TPU kernels of cet_pick_tpu/ops/pallas_gram.py:
-//   ROW   gram_row_stats   (:153; Pallas bodies _fwd_kernel :92,
-//                           _bwd_kernel :109)
-//   LOGIT gram_logit_stats (:290; _logit_fwd_kernel :244,
-//                           _logit_bwd_kernel :260)
-// Same functions, with a leading batch axis: feats (B, M, C), L2-normalized,
-// masks (B, M); per sample, with l_ij = (f_i.f_j - 1)/T off the diagonal
-// and l_ii = 0, e_ij = exp(l_ij):
+//   ROW   gram_row_stats       (:153; Pallas bodies _fwd_kernel :92,
+//                               _bwd_kernel :109)
+//   LOGIT gram_logit_stats     (:290; _logit_fwd_kernel :244,
+//                               _logit_bwd_kernel :260)
+//   V2    gram_supcon_v2_stats (:422; _v2_fwd_kernel :366,
+//                               _v2_bwd_kernel :387)
+// Same functions, with a leading batch axis: feats (B, M, C), masks (B, M).
+// ROW and LOGIT take L2-normalized features; per sample, with
+// l_ij = (f_i.f_j - 1)/T off the diagonal and l_ii = 0, e_ij = exp(l_ij):
 //   ROW   pos_sum_i = sum_j e_ij p_j, other_sum_i = sum_j e_ij o_j,
 //         total_sum_i = sum_j e_ij            (the diagonal adds 1 to each,
 //                                              under its mask)
 //   LOGIT logit_pos_sum_i = sum_j l_ij p_j, total_sum_i = sum_j e_ij
+// V2 takes raw features; s_ij = f_i.f_j/T off the diagonal, s_ii = 0 (the
+// diagonal enters the max as 0), e_ij = exp(s_ij - mx_i):
+//   V2    mx_i = max_j s_ij (no gradient), pos_sims_i = sum_j s_ij p_j,
+//         neg_sims_i = sum_j s_ij n_j, tot_i = sum_j e_ij
 // Backward, dF = W.F + W^T.F with w_ii = 0 and
 //   ROW   w_ij = e_ij (g_pos_i p_j + g_other_i o_j + g_tot_i) / T
 //   LOGIT w_ij = (g_lsum_i p_j + g_tot_i e_ij) / T
-// Rows and columns past M are masked by bounds, never padded.
+//   V2    w_ij = (g_ps_i p_j + g_ns_i n_j + g_tot_i e_ij) / T
+// Rows and columns past M are masked by bounds, never padded: a column
+// past M never enters a max or a sum.
 //
 // What bounds it on this card. At the training shape, M = 24,576 rows and
 // C = 32 per sample, one gram product is 2 M^2 C = 3.87e10 FLOP against
@@ -51,6 +60,16 @@
 // The two-pass backward recomputes the sims twice (four products where the
 // TPU kernel counts three), so it can reach at most 75% of that bound.
 // Tensor cores (wgmma with 3xTF32), TMA staging and symmetry are later work.
+//
+// V2 at its main-path shape (the cr step: B = 2 crops, M = 6 x 32 x 32 =
+// 6144, C = 32): one product is 2 M^2 C = 2.42e9 FLOP per sample, 4.8e9
+// for the batch, 0.072 ms at 67 TFLOP/s. Its forward takes two sweeps over
+// the column tiles: the first forms the row max (and the two masked sums,
+// which need no max), the second sum_j exp(s_ij - mx_i) against the final
+// max, as JAX does — two products where an online max with rescaling
+// would take one (later speed work). Its backward is the two passes above,
+// with the row max of the row index in the per-index data. The grid is
+// 96 x 2 = 192 blocks on 132 SMs, under two waves.
 
 #include <cuda_runtime.h>
 
@@ -61,20 +80,23 @@ namespace {
 constexpr int kTile = 64;           // owned and looped tile extent
 constexpr int kThreads = 256;       // 16 x 16 threads, 4 x 4 micro-tiles
 constexpr int kLd = kTile + 4;      // row stride of transposed / w tiles
+constexpr int kData = 6;            // per-index rows of the backward's data
 
-enum { ROW = 0, LOGIT = 1 };
+enum { ROW = 0, LOGIT = 1, V2 = 2 };
 enum { PASS_ROWS = 0, PASS_COLS = 1 };
 
 struct Args {
   const float* f;      // (B, M, C)
   const float* pos;    // (B, M)
-  const float* other;  // (B, M), ROW only
-  const float* g0;     // ROW: g_pos;   LOGIT: g_lsum   (B, M)
-  const float* g1;     // ROW: g_other; LOGIT: g_tot    (B, M)
-  const float* g2;     // ROW: g_tot                    (B, M)
-  float* out0;         // forward: the row sums; backward: the gradient
+  const float* other;  // (B, M), ROW: other; V2: neg
+  const float* g0;     // ROW: g_pos;   LOGIT: g_lsum; V2: g_ps   (B, M)
+  const float* g1;     // ROW: g_other; LOGIT: g_tot;  V2: g_ns   (B, M)
+  const float* g2;     // ROW: g_tot;                  V2: g_tot  (B, M)
+  const float* mx;     // V2 backward: the forward's row max      (B, M)
+  float* out0;         // forward: the row stats; backward: the gradient
   float* out1;
   float* out2;
+  float* out3;
   int M, C;
   float inv_t;
 };
@@ -134,18 +156,22 @@ gram_fwd_kernel(Args a) {
 
   load_tile<CP>(f, M, a.C, a0, aT, nullptr);
   float acc[4][3];
+  float mx[4];  // V2: the row max, -inf until a column is seen
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
+  for (int ii = 0; ii < 4; ++ii) {
+    mx[ii] = __int_as_float(0xff800000);
 #pragma unroll
     for (int k = 0; k < 3; ++k) acc[ii][k] = 0.f;
+  }
 
+  // sweep 1: ROW / LOGIT sums; V2 row max and masked sims sums
   for (int b0 = 0; b0 < M; b0 += kTile) {
     __syncthreads();  // the previous column tile is consumed
     load_tile<CP>(f, M, a.C, b0, bT, nullptr);
     if (threadIdx.x < kTile) {
       const int j = b0 + threadIdx.x;
       bp[threadIdx.x] = j < M ? a.pos[base + j] : 0.f;
-      if (V == ROW) bo[threadIdx.x] = j < M ? a.other[base + j] : 0.f;
+      if (V != LOGIT) bo[threadIdx.x] = j < M ? a.other[base + j] : 0.f;
     }
     __syncthreads();
     float s[4][4];
@@ -156,10 +182,17 @@ gram_fwd_kernel(Args a) {
       const int j = b0 + jl;
       if (j >= M) continue;
       const float p = bp[jl];
-      const float o = V == ROW ? bo[jl] : 0.f;
+      const float o = V != LOGIT ? bo[jl] : 0.f;
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii) {
         const int i = a0 + ty * 4 + ii;
+        if (V == V2) {
+          const float sv = i == j ? 0.f : s[ii][jj] * inv_t;
+          mx[ii] = fmaxf(mx[ii], sv);
+          acc[ii][0] = fmaf(sv, p, acc[ii][0]);
+          acc[ii][1] = fmaf(sv, o, acc[ii][1]);
+          continue;
+        }
         const float l = i == j ? 0.f : s[ii][jj] * inv_t - inv_t;
         const float e = expf(l);
         if (V == ROW) {
@@ -174,9 +207,37 @@ gram_fwd_kernel(Args a) {
     }
   }
 
+  if (V == V2) {
+    // the row max over the 16 lanes of the row group (a max has no order),
+    // then sweep 2: sum_j exp(s_ij - mx_i) against the final max
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx[ii] = fmaxf(mx[ii], __shfl_xor_sync(0xffffffffu, mx[ii], off));
+    for (int b0 = 0; b0 < M; b0 += kTile) {
+      __syncthreads();
+      load_tile<CP>(f, M, a.C, b0, bT, nullptr);
+      __syncthreads();
+      float s[4][4];
+      sims_tile<CP>(aT, bT, tx, ty, s);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = b0 + tx * 4 + jj;
+        if (j >= M) continue;
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int i = a0 + ty * 4 + ii;
+          const float sv = i == j ? 0.f : s[ii][jj] * inv_t;
+          acc[ii][2] += expf(sv - mx[ii]);
+        }
+      }
+    }
+  }
+
   // the 16 threads of a row group are one half warp: a fixed-order
   // butterfly over lanes
-  constexpr int kStats = V == ROW ? 3 : 2;
+  constexpr int kStats = V == LOGIT ? 2 : 3;
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
@@ -185,11 +246,14 @@ gram_fwd_kernel(Args a) {
       for (int off = 8; off > 0; off >>= 1)
         acc[ii][k] += __shfl_xor_sync(0xffffffffu, acc[ii][k], off);
   if (tx == 0) {
-    float* outs[3] = {a.out0, a.out1, a.out2};
+    // V2 writes (mx, pos_sims, neg_sims, tot) to out0..out3
+    float* outs[3] = {V == V2 ? a.out1 : a.out0, V == V2 ? a.out2 : a.out1,
+                      V == V2 ? a.out3 : a.out2};
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii) {
       const int i = a0 + ty * 4 + ii;
       if (i >= M) continue;
+      if (V == V2) a.out0[base + i] = mx[ii];
 #pragma unroll
       for (int k = 0; k < kStats; ++k) outs[k][base + i] = acc[ii][k];
     }
@@ -209,7 +273,7 @@ gram_bwd_kernel(Args a) {
   float* bT = aT + CP * kLd;                    // CP x kLd, looped tile
   float* bw = bT + CP * kLd;                    // kTile x kLd, w[a][b]
   float* brm = bw + kTile * kLd;                // kTile x CP, looped rows
-  float* bd = brm + kTile * CP;                 // 5 x kTile, looped data
+  float* bd = brm + kTile * CP;                 // kData x kTile, looped data
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int M = a.M;
@@ -218,17 +282,18 @@ gram_bwd_kernel(Args a) {
   const float* f = a.f + base * a.C;
   const float inv_t = a.inv_t;
 
-  // per-index data: cotangents g0..g2 (its row role), masks p, o (its
-  // column role); zeros past M
-  auto data = [&](int k, float d[5]) {
+  // per-index data: cotangents g0..g2 and, for V2, the row max (its row
+  // role), masks p, o (its column role); zeros past M
+  auto data = [&](int k, float d[kData]) {
     const bool v = k < M;
     d[0] = v ? a.g0[base + k] : 0.f;
     d[1] = v ? a.g1[base + k] : 0.f;
-    d[2] = (V == ROW && v) ? a.g2[base + k] : 0.f;
+    d[2] = (V != LOGIT && v) ? a.g2[base + k] : 0.f;
     d[3] = v ? a.pos[base + k] : 0.f;
-    d[4] = (V == ROW && v) ? a.other[base + k] : 0.f;
+    d[4] = (V != LOGIT && v) ? a.other[base + k] : 0.f;
+    d[5] = (V == V2 && v) ? a.mx[base + k] : 0.f;
   };
-  float own[4][5];
+  float own[4][kData];
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) data(a0 + ty * 4 + ii, own[ii]);
 
@@ -244,10 +309,10 @@ gram_bwd_kernel(Args a) {
     __syncthreads();  // the previous tile's w and rows are consumed
     load_tile<CP>(f, M, a.C, b0, bT, brm);
     if (threadIdx.x < kTile) {
-      float d[5];
+      float d[kData];
       data(b0 + threadIdx.x, d);
 #pragma unroll
-      for (int k = 0; k < 5; ++k) bd[k * kTile + threadIdx.x] = d[k];
+      for (int k = 0; k < kData; ++k) bd[k * kTile + threadIdx.x] = d[k];
     }
     __syncthreads();
     float s[4][4];
@@ -262,20 +327,27 @@ gram_bwd_kernel(Args a) {
         const int ib = b0 + jl;
         w[jj] = 0.f;
         if (ib < M && ia != ib) {
-          const float e = expf(s[ii][jj] * inv_t - inv_t);
-          // cotangents of the row i, masks of the column j
-          float r0, r1, r2, cp, co;
+          // cotangents and row max of the row i, masks of the column j
+          float r0, r1, r2, rmx, cp, co;
           if (PASS == PASS_ROWS) {
             r0 = own[ii][0], r1 = own[ii][1], r2 = own[ii][2];
+            rmx = own[ii][5];
             cp = bd[3 * kTile + jl], co = bd[4 * kTile + jl];
           } else {
             r0 = bd[jl], r1 = bd[kTile + jl], r2 = bd[2 * kTile + jl];
+            rmx = bd[5 * kTile + jl];
             cp = own[ii][3], co = own[ii][4];
           }
-          if (V == ROW)
-            w[jj] = e * (r0 * cp + r1 * co + r2) * inv_t;
-          else
-            w[jj] = (r0 * cp + r1 * e) * inv_t;
+          if (V == V2) {
+            const float e = expf(s[ii][jj] * inv_t - rmx);
+            w[jj] = (r0 * cp + r1 * co + r2 * e) * inv_t;
+          } else {
+            const float e = expf(s[ii][jj] * inv_t - inv_t);
+            if (V == ROW)
+              w[jj] = e * (r0 * cp + r1 * co + r2) * inv_t;
+            else
+              w[jj] = (r0 * cp + r1 * e) * inv_t;
+          }
         }
       }
       *reinterpret_cast<float4*>(bw + (ty * 4 + ii) * kLd + tx * 4) =
@@ -344,7 +416,7 @@ int fwd(int B, const Args& args, cudaStream_t stream) {
 template <int V, int CP>
 int bwd(int pass, int B, const Args& args, cudaStream_t stream) {
   const size_t smem = (2 * (size_t)CP * kLd + (size_t)kTile * kLd +
-                       (size_t)kTile * CP + 5 * kTile) * sizeof(float);
+                       (size_t)kTile * CP + kData * kTile) * sizeof(float);
   if (pass == PASS_ROWS)
     return launch(gram_bwd_kernel<V, PASS_ROWS, CP>, smem, B, args.M, args,
                   stream);
@@ -364,10 +436,17 @@ int by_width(int C, F&& f) {
 int check(int variant, int B, int M, int C, int device) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if ((variant != ROW && variant != LOGIT) || B < 1 || B > 65535 || M < 1 ||
+  if (variant < ROW || variant > V2 || B < 1 || B > 65535 || M < 1 ||
       C < 1 || C > 128 || C % 4 != 0)
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+template <typename F>
+int by_variant(int variant, F&& f) {
+  if (variant == ROW) return f(std::integral_constant<int, ROW>());
+  if (variant == LOGIT) return f(std::integral_constant<int, LOGIT>());
+  return f(std::integral_constant<int, V2>());
 }
 
 }  // namespace
@@ -379,29 +458,32 @@ int check(int variant, int B, int M, int C, int device) {
 //
 // variant 0 (ROW): outputs pos_sum, other_sum, total_sum (B, M).
 // variant 1 (LOGIT): outputs logit_pos_sum, total_sum; other is unused.
+// variant 2 (V2): outputs mx, pos_sims, neg_sims, tot; other is neg.
 extern "C" int gram_stats_fwd_f32(int variant, const void* f, const void* pos,
                                   const void* other, void* out0, void* out1,
-                                  void* out2, int B, int M, int C, float inv_t,
-                                  int device, void* stream) {
+                                  void* out2, void* out3, int B, int M, int C,
+                                  float inv_t, int device, void* stream) {
   const int err = check(variant, B, M, C, device);
   if (err) return err;
   Args a{static_cast<const float*>(f), static_cast<const float*>(pos),
-         static_cast<const float*>(other), nullptr, nullptr, nullptr,
+         static_cast<const float*>(other), nullptr, nullptr, nullptr, nullptr,
          static_cast<float*>(out0), static_cast<float*>(out1),
-         static_cast<float*>(out2), M, C, inv_t};
+         static_cast<float*>(out2), static_cast<float*>(out3), M, C, inv_t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == ROW)
-    return by_width(C, [&](auto cp) { return fwd<ROW, decltype(cp)::value>(B, a, s); });
-  return by_width(C, [&](auto cp) { return fwd<LOGIT, decltype(cp)::value>(B, a, s); });
+  return by_variant(variant, [&](auto v) {
+    return by_width(C, [&](auto cp) {
+      return fwd<decltype(v)::value, decltype(cp)::value>(B, a, s);
+    });
+  });
 }
 
 // One backward pass: pass 0 writes grad = W.F (rows), pass 1 adds W^T.F
-// (columns); launch pass 0 first. Cotangents g0, g1, g2 as in Args.
+// (columns); launch pass 0 first. Cotangents g0, g1, g2 and mx as in Args.
 extern "C" int gram_stats_bwd_f32(int variant, int pass, const void* f,
                                   const void* pos, const void* other,
                                   const void* g0, const void* g1,
-                                  const void* g2, void* grad, int B, int M,
-                                  int C, float inv_t, int device,
+                                  const void* g2, const void* mx, void* grad,
+                                  int B, int M, int C, float inv_t, int device,
                                   void* stream) {
   const int err = check(variant, B, M, C, device);
   if (err) return err;
@@ -410,9 +492,12 @@ extern "C" int gram_stats_bwd_f32(int variant, int pass, const void* f,
   Args a{static_cast<const float*>(f), static_cast<const float*>(pos),
          static_cast<const float*>(other), static_cast<const float*>(g0),
          static_cast<const float*>(g1), static_cast<const float*>(g2),
-         static_cast<float*>(grad), nullptr, nullptr, M, C, inv_t};
+         static_cast<const float*>(mx), static_cast<float*>(grad), nullptr,
+         nullptr, nullptr, M, C, inv_t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == ROW)
-    return by_width(C, [&](auto cp) { return bwd<ROW, decltype(cp)::value>(pass, B, a, s); });
-  return by_width(C, [&](auto cp) { return bwd<LOGIT, decltype(cp)::value>(pass, B, a, s); });
+  return by_variant(variant, [&](auto v) {
+    return by_width(C, [&](auto cp) {
+      return bwd<decltype(v)::value, decltype(cp)::value>(pass, B, a, s);
+    });
+  });
 }

@@ -19,8 +19,9 @@ padding applies — exactly as in a full-volume forward.
 
 Memory envelope: when the fused window batch would exceed the activation
 budget, xy tiles itself with the full-network halo. The budget comes from
-the device's free memory (``torch.cuda.mem_get_info``) unless the caller
-passes ``xy_budget``; on the CPU there is no envelope unless one is given.
+the device's free memory (``torch.cuda.mem_get_info`` plus the caching
+allocator's unused blocks) unless the caller passes ``xy_budget``; on the
+CPU there is no envelope unless one is given.
 """
 
 from __future__ import annotations
@@ -57,6 +58,16 @@ def xy_halo(n_blocks: int, stem_stride: int = 2) -> int:
     return -(-raw // a) * a
 
 
+def _free_device_bytes(device) -> int:
+    """Device memory this process can allocate: the free bytes of
+    ``torch.cuda.mem_get_info`` plus the blocks PyTorch's caching allocator
+    holds but no tensor uses (after a large forward in the same process,
+    ``mem_get_info`` alone counts them as taken)."""
+    free = torch.cuda.mem_get_info(device)[0]
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
 class TiledHeatmapInference:
     """z-tiled (and optionally xy-tiled) `hm` forward for one model."""
 
@@ -64,7 +75,8 @@ class TiledHeatmapInference:
     # unet_4): chip_smoke.py measured 296.5 (peak allocated over the 4x70
     # slices of 512x512 it fuses, H100 80GB HBM3) — the trunk's non-inplace
     # BatchNorm outputs, the up blocks' concats and cuDNN workspace; a
-    # count of live tensors alone gives ~160. Rounded up for headroom.
+    # count of live tensors alone gives ~160. Rounded up for headroom. A
+    # model with a ``bytes_per_voxel`` attribute (unetw_N) sets its own.
     BYTES_PER_VOXEL = 320.0
     # share of the device's free memory the fused window batch may take
     MEMORY_FRACTION = 0.5
@@ -81,11 +93,12 @@ class TiledHeatmapInference:
         # (tile_h, tile_w) in input pixels, 0/None = never tile that axis
         self.tile_xy = tuple(int(t) for t in tile_xy) if tile_xy else None
         if xy_budget is None:
-            xy_budget = (self.MEMORY_FRACTION
-                         * torch.cuda.mem_get_info(self.device)[0]
+            xy_budget = (self.MEMORY_FRACTION * _free_device_bytes(self.device)
                          if self.device.type == "cuda" else math.inf)
         self.xy_budget = float(xy_budget)
         self.xy_down = model.stem_stride
+        self.bytes_per_voxel = float(
+            getattr(model, "bytes_per_voxel", self.BYTES_PER_VOXEL))
         self.xy_halo = xy_halo(model.n_blocks, self.xy_down)
         self.xy_align = xy_align(model.n_blocks, self.xy_down)
 
@@ -174,12 +187,12 @@ class TiledHeatmapInference:
         """A square (tile_h, tile_w) when the fused window batch would
         exceed the activation budget; None when it fits untiled."""
         views = 4 if self.tta else 1  # flip-TTA rides the conv batch
-        est = views * n_windows * win_d * h * w * self.BYTES_PER_VOXEL
+        est = views * n_windows * win_d * h * w * self.bytes_per_voxel
         if est <= self.xy_budget:
             return None
         a, halo = self.xy_align, self.xy_halo
         max_win_area = self.xy_budget / (
-            views * n_windows * win_d * self.BYTES_PER_VOXEL
+            views * n_windows * win_d * self.bytes_per_voxel
         )
         side = int(math.floor(math.sqrt(max_win_area))) - 2 * halo
         tile = max(a, side - side % a)
@@ -198,7 +211,7 @@ class TiledHeatmapInference:
             return min(dim, t + 2 * halo)
 
         wh, ww = extent(tile_xy[0], h), extent(tile_xy[1], w)
-        return views * n_windows * win_d * wh * ww * self.BYTES_PER_VOXEL
+        return views * n_windows * win_d * wh * ww * self.bytes_per_voxel
 
     def _effective_xy(self, n_windows, win_d, h, w):
         """Merge the explicit ``--tile H W`` with the memory envelope: the
@@ -213,7 +226,8 @@ class TiledHeatmapInference:
 
     def _xy_tiled(self, volume, z_forward, tile_xy=None):
         """Decompose xy, run ``z_forward`` per xy window, stitch output cores
-        (output grid = input/2). Returns None when no xy tiling is needed."""
+        (output grid = input / stem stride). Returns None when no xy
+        tiling is needed."""
         d, h, w = volume.shape
         tile_xy = tile_xy if tile_xy is not None else self.tile_xy
         th, tw = tile_xy if tile_xy else (0, 0)
@@ -222,7 +236,8 @@ class TiledHeatmapInference:
         if hplan is None and wplan is None:
             return None
         # passthrough axes keep the window's full output extent; tiled axes
-        # are all-even by construction, so the core is [(a0-s)/2, (a1-s)/2)
+        # are on the stride grid by construction, so the core is
+        # [(a0-s)/dn, (a1-s)/dn)
         hp, hwin = hplan if hplan else ((None,), h)
         wp, wwin = wplan if wplan else ((None,), w)
 
@@ -282,7 +297,7 @@ class TiledHeatmapInference:
     def __call__(self, volume, lo: float = 0.0, hi: float = 1.0):
         """volume: (D, H, W) float32 — or uint8 with (lo, hi) dequantization
         bounds from ``io.loader.preprocess_quantized`` — as a host array or
-        a tensor -> stitched (D, H//2, W//2) heatmap probabilities on the
+        a tensor -> stitched (D, H//s, W//s) heatmap probabilities on the
         model's device, streamed one z window at a time. When ``tile_xy``
         is set and the volume exceeds it, the same scheme tiles H/W with the
         full-network xy halo."""

@@ -4,7 +4,10 @@ port's state dict. Port of ``cet_pick_tpu/models/convert.py``
 
 The port's ``TomoPickNet`` uses the reference ``TomoConvUNet`` state-dict
 layout, so the reference's checkpoints and the JAX package's
-``export-torch`` output load as they are. Layout rules from flax:
+``export-torch`` output load as they are. ``TomoPickNetW`` (``unetw_N``)
+has no reference layout (the JAX package converts none, convert.py:722);
+its keys are the port's module names, which its ``.pth`` files use too.
+Layout rules from flax:
 
   Conv2d  (kh, kw, in, out)         -> (out, in, kh, kw)
   Conv3d  (kd, kh, kw, in, out)     -> (out, in, kd, kh, kw)
@@ -31,9 +34,11 @@ def _get(tree, path):
 
 def state_dict_from_jax(params, batch_stats, n_blocks: int,
                         heads) -> Dict[str, torch.Tensor]:
-    """JAX ``TomoPickNet`` variables (nested dicts of arrays) -> the port's
-    state dict, including the ``num_batches_tracked`` buffers, so that
-    ``TomoPickNet.load_state_dict(..., strict=True)`` takes it."""
+    """JAX ``TomoPickNet`` or ``TomoPickNetW`` variables (nested dicts of
+    arrays) -> the port's state dict, including the ``num_batches_tracked``
+    buffers, so that the port's model loads it with ``strict=True``. The
+    family is read from the stem: ``unetw_N``'s has ``embed`` and ``mix``
+    convs."""
     sd: Dict = {}
 
     def bn(dst, src):
@@ -68,8 +73,13 @@ def state_dict_from_jax(params, batch_stats, n_blocks: int,
         except (KeyError, TypeError):
             pass
 
-    conv2d("conv1", ("stem",), bias=False)
-    bn("bn1", ("stem_bn",))
+    if "embed" in params["stem"]:  # unetw_N: _PatchStem
+        conv2d("stem.embed", ("stem", "embed"), bias=False)
+        conv2d("stem.mix", ("stem", "mix"), bias=False)
+        bn("stem_bn", ("stem_bn",))
+    else:
+        conv2d("conv1", ("stem",), bias=False)
+        bn("bn1", ("stem_bn",))
     for i in range(n_blocks):
         base = f"unet.down_convs.{i}"
         blk = ("unet", f"down{i}")

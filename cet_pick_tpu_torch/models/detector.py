@@ -1,5 +1,5 @@
-"""TomoPickNet — the refinement heatmap detector, port of
-``cet_pick_tpu/models/detector.py`` (``unet_N`` only).
+"""TomoPickNet (``unet_N``) and TomoPickNetW (``unetw_N``) — the refinement
+heatmap detectors, port of ``cet_pick_tpu/models/detector.py``.
 
 The reference's production model ``TomoConvUNet`` (reference:
 cet_pick/models/networks/unet_small.py:30-113):
@@ -15,10 +15,17 @@ Attribute names follow the reference state dict (``conv1``, ``bn1``,
 ``.pth`` files and the JAX package's ``export-torch`` output load with
 ``strict=True``.
 
+``unetw_N`` (detector.py:156-268) is the JAX package's wide family: a 4x4
+patchify stem, a 128-wide UNet trunk, ``FeatureHead3D(128)`` and output
+stride 4. It has no reference checkpoint; its state dict keys are the
+port's module names (``stem.embed``, ``stem.mix``, ``stem_bn``, then as
+``unet_N``), and ``models/convert.state_dict_from_jax`` maps JAX's
+parameters onto them.
+
 Layout: the trunk runs NCHW with z folded into the batch; the head works
 channels-last, which is what the z-tap kernel takes. The public
-``TomoPickNet.forward`` keeps the JAX layout: input ``(B, D, H, W)``,
-output ``{head: (B, D, H//2, W//2, C)}``.
+``forward`` keeps the JAX layout: input ``(B, D, H, W)``, output
+``{head: (B, D, H//s, W//s, C)}`` with s = ``stem_stride``.
 """
 
 from __future__ import annotations
@@ -97,21 +104,12 @@ class FeatureHead3D(nn.Module):
         return x
 
 
-class TomoPickNet(nn.Module):
-    """Slice-wise 2D UNet + dilated 3D head heatmap detector."""
+class _Detector(nn.Module):
+    """Stem + slice-wise 2D UNet + dilated 3D head + per-task heads; the
+    subclasses build the stem, the trunk and ``feature_head``."""
 
-    stem_stride = 2  # output stride; read by infer/tiled for xy geometry
-
-    def __init__(self, heads: Dict[str, int], n_blocks: int = 4,
-                 head_conv: int = 32, stem_features: int = 16):
-        super().__init__()
+    def _add_heads(self, heads, head_conv):
         self.heads = dict(heads)
-        self.n_blocks = n_blocks
-        self.conv1 = _Stem(stem_features)
-        self.bn1 = BatchNorm2d(stem_features)
-        self.unet = UNet2D(n_blocks, start_filts=32, out_channels=32,
-                           in_channels=stem_features)
-        self.feature_head = FeatureHead3D(32, head_conv)
         for head, classes in self.heads.items():
             self.add_module(head, nn.Conv3d(head_conv, classes, (3, 1, 1),
                                             padding=(1, 0, 0), bias=False))
@@ -122,11 +120,10 @@ class TomoPickNet(nn.Module):
         active_heads: optional subset of the heads to compute (whole-volume
         picking needs only 'hm')."""
         b, d, h, w = x.shape
-        x = x.reshape(b * d, 1, h, w)
-        x = F.relu(self.bn1(self.conv1(x)), inplace=True)
+        x = F.relu(self._stem(x.reshape(b * d, 1, h, w)), inplace=True)
         x = self.unet(x)
         hh, ww = x.shape[-2:]
-        # (B*D, 32, H', W') -> channels-last (B, D, H', W', 32) for the head
+        # (B*D, C, H', W') -> channels-last (B, D, H', W', C) for the head
         x = x.permute(0, 2, 3, 1).contiguous().reshape(b, d, hh, ww, -1)
         x = self.feature_head(x)
         out = {}
@@ -143,19 +140,95 @@ class TomoPickNet(nn.Module):
         return out
 
 
-def create_detector(config) -> TomoPickNet:
-    """Build a TomoPickNet from a Config (arch 'unet_N' -> n_blocks=N),
-    mirroring the arch parsing of reference models/model.py:65-70."""
+class TomoPickNet(_Detector):
+    """``unet_N``: k7 s2 stem, 32-wide trunk, output stride 2."""
+
+    stem_stride = 2  # output stride; read by infer/tiled for xy geometry
+
+    def __init__(self, heads: Dict[str, int], n_blocks: int = 4,
+                 head_conv: int = 32, stem_features: int = 16):
+        super().__init__()
+        self.n_blocks = n_blocks
+        self.conv1 = _Stem(stem_features)
+        self.bn1 = BatchNorm2d(stem_features)
+        self.unet = UNet2D(n_blocks, start_filts=32, out_channels=32,
+                           in_channels=stem_features)
+        self.feature_head = FeatureHead3D(32, head_conv)
+        self._add_heads(heads, head_conv)
+
+    def _stem(self, x):
+        return self.bn1(self.conv1(x))
+
+
+class _PatchStem(nn.Module):
+    """4x4 space-to-depth to 16 channels, a 1x1 embed, then a k3 mix conv,
+    all bias-free (JAX ``_PatchStem``, detector.py:156-188). H and W are
+    zero-padded up to a multiple of 4 and the output cropped to
+    (H//4, W//4). ``pixel_unshuffle`` orders the 16 channels as
+    dy * 4 + dx, JAX's reshape order."""
+
+    def __init__(self, features: int = 128):
+        super().__init__()
+        self.embed = nn.Conv2d(16, features, 1, bias=False)
+        self.mix = nn.Conv2d(features, features, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        h, w = x.shape[-2:]
+        x = F.pad(x, (0, (-w) % 4, 0, (-h) % 4))
+        x = self.mix(self.embed(F.pixel_unshuffle(x, 4)))
+        return x[..., : h // 4, : w // 4]
+
+
+class TomoPickNetW(_Detector):
+    """``unetw_N``: patchify stem, ``width``-wide trunk and head input,
+    output stride 4 (JAX ``TomoPickNetW``, detector.py:191-268)."""
+
+    stem_stride = 4  # output stride; read by infer/tiled for xy geometry
+    # Peak device bytes per input voxel of the fused window batch (f32),
+    # read by infer/tiled's memory envelope as JAX reads its own model's
+    # (cet_pick_tpu/infer/tiled.py:117-118). chip_smoke.py measured 551.5
+    # for unetw_3 over the 4x70 slices of 512x512 it fuses (H100 80GB HBM3):
+    # its tensors peak at 17.6 GB (239 B/voxel), and cuDNN takes 27.6 GB
+    # more as workspace for each 128-channel 3x3 conv at full resolution
+    # when that much is free (PyTorch falls back to leaner algorithms when
+    # it is not). Rounded up to 560 and not further: at 576 that batch
+    # (42.3 GB) would exceed half of an idle 80 GB card (42.1 GB) and tile
+    # xy into nine halo-dominated windows.
+    bytes_per_voxel = 560.0
+
+    def __init__(self, heads: Dict[str, int], n_blocks: int = 3,
+                 head_conv: int = 128, width: int = 128):
+        super().__init__()
+        self.n_blocks = n_blocks
+        self.stem = _PatchStem(width)
+        self.stem_bn = BatchNorm2d(width)
+        self.unet = UNet2D(n_blocks, start_filts=width, out_channels=width,
+                           in_channels=width)
+        self.feature_head = FeatureHead3D(width, head_conv)
+        self._add_heads(heads, head_conv)
+
+    def _stem(self, x):
+        return self.stem_bn(self.stem(x))
+
+
+def create_detector(config) -> _Detector:
+    """Build the detector of a Config, mirroring the arch parsing of
+    reference models/model.py:65-70 and JAX detector.py:337-373: 'unet_N'
+    -> TomoPickNet(n_blocks=N), 'unetw_N' -> TomoPickNetW(n_blocks=N, 3
+    without a suffix)."""
     arch = config.arch
     if config.dtype != "float32":
         raise NotImplementedError(
             f"--dtype {config.dtype}: the port runs float32 only so far")
-    if arch.startswith("unetw") or arch.startswith(("res3d", "p3d")):
+    if arch.startswith(("res3d", "p3d")):
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ROADMAP Queue 1 item 7); the "
-            f"port runs unet_N")
+            f"port runs unet_N and unetw_N")
     if not arch.startswith("unet"):
         raise ValueError(f"unknown detector arch {arch!r}")
-    n_blocks = int(arch.split("_")[1]) if "_" in arch else 4
-    return TomoPickNet(heads=dict(config.heads), n_blocks=n_blocks,
+    n_blocks = int(arch.split("_")[1]) if "_" in arch else None
+    if arch.startswith("unetw"):
+        return TomoPickNetW(heads=dict(config.heads), n_blocks=n_blocks or 3,
+                            head_conv=config.head_conv)
+    return TomoPickNet(heads=dict(config.heads), n_blocks=n_blocks or 4,
                        head_conv=config.head_conv)

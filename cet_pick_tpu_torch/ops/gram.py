@@ -1,5 +1,5 @@
 """Fused row statistics of the contrastive similarity matrix, with their
-gradients — the gram work of the refinement train step.
+gradients — the gram work of the refinement and supervised train steps.
 
 Ports of the TPU kernels ``cet_pick_tpu/ops/pallas_gram.py``:
 
@@ -9,21 +9,26 @@ Ports of the TPU kernels ``cet_pick_tpu/ops/pallas_gram.py``:
   sum_j e_ij) per row.
 * ``gram_logit_stats`` (:290, custom VJP) — the supervised contrastive
   loss of the ``--pn`` step: returns (sum_j l_ij p_j, sum_j e_ij) per row.
+* ``gram_supcon_v2_stats`` (:422, custom VJP) — the single-view supcon of
+  ``train --task cr``, on raw features. With s_ij = f_i . f_j / T off the
+  diagonal and s_ii = 0 (before the max): returns (max_j s_ij, detached;
+  sum_j s_ij p_j; sum_j s_ij n_j; sum_j exp(s_ij - max)) per row.
 
 Same signatures as JAX's, plus an optional leading batch axis: ``feats``
-(M, C) or (B, M, C), L2-normalized float32; masks (M,) or (B, M). Gradients
-flow to ``feats`` only.
+(M, C) or (B, M, C) float32 (L2-normalized for the first two); masks (M,)
+or (B, M). Gradients flow to ``feats`` only.
 
-* A CUDA tensor goes through ``GramRowStats`` / ``GramLogitStats``, whose
-  forward and backward launch the hand-written Hopper kernels of
-  ``csrc/gram_stats.cu`` (built by nvcc at first use, ``ops/_build.py``).
-  Each launch adds one to the function's ``launches`` count: ``fwd``,
-  ``bwd_rows`` (dF += W.F) and ``bwd_cols`` (dF += W^T.F).
+* A CUDA tensor goes through ``GramRowStats`` / ``GramLogitStats`` /
+  ``GramSupconV2Stats``, whose forward and backward launch the hand-written
+  Hopper kernels of ``csrc/gram_stats.cu`` (built by nvcc at first use,
+  ``ops/_build.py``). Each launch adds one to the function's ``launches``
+  count: ``fwd``, ``bwd_rows`` (dF += W.F) and ``bwd_cols`` (dF += W^T.F).
 * A CPU tensor takes the plain version, ``gram_row_stats_plain`` /
-  ``gram_logit_stats_plain``: dense torch in row blocks (matmul, exp, masked
-  sums), each block under ``torch.utils.checkpoint`` so that autograd keeps
-  no (block, M) stripe — the reason of ``train/losses.py:241-246`` in JAX.
-  The tests and ``chip_smoke.py`` hold the kernels against it on the card.
+  ``gram_logit_stats_plain`` / ``gram_supcon_v2_stats_plain``: dense torch
+  in row blocks (matmul, exp, masked sums), each block under
+  ``torch.utils.checkpoint`` so that autograd keeps no (block, M) stripe —
+  the reason of ``train/losses.py:241-246`` in JAX. The tests and
+  ``chip_smoke.py`` hold the kernels against it on the card.
 * Anything else raises.
 """
 
@@ -37,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from cet_pick_tpu_torch.ops._build import load_library
 
-_ROW, _LOGIT = 0, 1
+_ROW, _LOGIT, _V2 = 0, 1, 2
 _PASS_ROWS, _PASS_COLS = 0, 1
 _MAX_C = 128  # widest C the kernels are instantiated for
 
@@ -84,6 +89,18 @@ def _logit_block(rows, idx, feats, pos, temp):
     return (logits * pos[:, None, :]).sum(-1), torch.exp(logits).sum(-1)
 
 
+def _v2_block(rows, idx, feats, pos, neg, temp):
+    """Raw sims with the diagonal set to 0 before the row max
+    (pallas_gram.py:370-383); the max is detached."""
+    sims = torch.matmul(rows, feats.transpose(-1, -2)) / temp
+    col = torch.arange(feats.shape[1], device=feats.device)
+    sims = torch.where(col[None, :] != idx[:, None], sims, 0.0)
+    mx = sims.detach().amax(-1)
+    return (mx, (sims * pos[:, None, :]).sum(-1),
+            (sims * neg[:, None, :]).sum(-1),
+            torch.exp(sims - mx[..., None]).sum(-1))
+
+
 def gram_row_stats_plain(feats, pos_mask, other_mask, temp, block=1024):
     """Plain torch ``gram_row_stats`` on (B, M, C) features and (B, M)
     masks; differentiable by autograd."""
@@ -95,6 +112,12 @@ def gram_logit_stats_plain(feats, pos_mask, temp, block=1024):
     return _blocked(_logit_block, feats, (pos_mask,), temp, block)
 
 
+def gram_supcon_v2_stats_plain(feats, pos_mask, neg_mask, temp, block=1024):
+    """Plain torch ``gram_supcon_v2_stats`` on (B, M, C) raw features and
+    (B, M) masks; the row max carries no gradient."""
+    return _blocked(_v2_block, feats, (pos_mask, neg_mask), temp, block)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -103,12 +126,12 @@ def gram_logit_stats_plain(feats, pos_mask, temp, block=1024):
 def _cuda_fns():
     lib = load_library("gram_stats")
     fwd = lib.gram_stats_fwd_f32
-    fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+    fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
                                             ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwd = lib.gram_stats_bwd_f32
-    bwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+    bwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
                                             ctypes.c_void_p])
     bwd.restype = ctypes.c_int
@@ -127,13 +150,19 @@ def _launch(name, counts, key, fn, *args):
     counts[key] += 1
 
 
+def _public(variant):
+    """(public wrapper, its number of outputs) of a kernel variant."""
+    return {_ROW: (gram_row_stats, 3), _LOGIT: (gram_logit_stats, 2),
+            _V2: (gram_supcon_v2_stats, 4)}[variant]
+
+
 def _fwd(variant, feats, masks, temp):
     b, m, _ = feats.shape
+    public, n_out = _public(variant)
     outs = [torch.empty((b, m), device=feats.device, dtype=feats.dtype)
-            for _ in range(3 if variant == _ROW else 2)]
-    public = gram_row_stats if variant == _ROW else gram_logit_stats
-    other = masks[1] if variant == _ROW else None
-    ptrs = [_ptr(o) for o in outs] + [None] * (3 - len(outs))
+            for _ in range(n_out)]
+    other = masks[1] if len(masks) > 1 else None
+    ptrs = [_ptr(o) for o in outs] + [None] * (4 - n_out)
     _launch(public.__name__, public.launches, "fwd", _cuda_fns()[0],
             variant, _ptr(feats), _ptr(masks[0]), _ptr(other), *ptrs,
             b, m, feats.shape[2], 1.0 / temp, feats.device.index,
@@ -141,27 +170,27 @@ def _fwd(variant, feats, masks, temp):
     return tuple(outs)
 
 
-def _bwd_pass(variant, pas, feats, masks, temp, cts, grad):
+def _bwd_pass(variant, pas, feats, masks, temp, cts, grad, mx=None):
     """One backward kernel: ``_PASS_ROWS`` writes grad = W.F, ``_PASS_COLS``
-    adds W^T.F (launch the row pass first)."""
+    adds W^T.F (launch the row pass first). ``mx``: V2's row max."""
     b, m, c = feats.shape
-    public = gram_row_stats if variant == _ROW else gram_logit_stats
-    other = masks[1] if variant == _ROW else None
+    public, _ = _public(variant)
+    other = masks[1] if len(masks) > 1 else None
     gptr = [_ptr(g) for g in cts] + [None] * (3 - len(cts))
     _launch(public.__name__, public.launches,
             "bwd_rows" if pas == _PASS_ROWS else "bwd_cols", _cuda_fns()[1],
             variant, pas, _ptr(feats), _ptr(masks[0]), _ptr(other), *gptr,
-            _ptr(grad), b, m, c, 1.0 / temp, feats.device.index,
+            _ptr(mx), _ptr(grad), b, m, c, 1.0 / temp, feats.device.index,
             torch.cuda.current_stream(feats.device).cuda_stream)
 
 
-def _bwd(variant, feats, masks, temp, cts):
+def _bwd(variant, feats, masks, temp, cts, mx=None):
     cts = [torch.zeros_like(masks[0]) if g is None else g.contiguous()
            for g in cts]
     _check_same(feats, *cts)
     grad = torch.empty_like(feats)
     for pas in (_PASS_ROWS, _PASS_COLS):
-        _bwd_pass(variant, pas, feats, masks, temp, cts, grad)
+        _bwd_pass(variant, pas, feats, masks, temp, cts, grad, mx)
     return grad
 
 
@@ -196,6 +225,26 @@ class GramLogitStats(torch.autograd.Function):
         feats, pos_mask = ctx.saved_tensors
         grad = _bwd(_LOGIT, feats, (pos_mask,), ctx.temp, (g_lsum, g_tot))
         return grad, None, None
+
+
+class GramSupconV2Stats(torch.autograd.Function):
+    """``gram_supcon_v2_stats`` on the card: forward and backward kernels;
+    the row max is an output without gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, pos_mask, neg_mask, temp):
+        ctx.temp = temp
+        outs = _fwd(_V2, feats, (pos_mask, neg_mask), temp)
+        ctx.mark_non_differentiable(outs[0])
+        ctx.save_for_backward(feats, pos_mask, neg_mask, outs[0])
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_mx, g_ps, g_ns, g_tot):
+        feats, pos_mask, neg_mask, mx = ctx.saved_tensors
+        grad = _bwd(_V2, feats, (pos_mask, neg_mask), ctx.temp,
+                    (g_ps, g_ns, g_tot), mx)
+        return grad, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -272,3 +321,18 @@ def gram_logit_stats(feats, pos_mask, temp):
 
 
 gram_logit_stats.launches = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0}
+
+
+def gram_supcon_v2_stats(feats, pos_mask, neg_mask, temp):
+    """(row_max, pos_sims, neg_sims, tot) of the raw-feature sims, see the
+    module doc; ``row_max`` carries no gradient. Shapes as in
+    :func:`gram_row_stats`."""
+    feats, masks, squeeze = _prepare(feats, (pos_mask, neg_mask))
+    if feats.device.type == "cpu":
+        outs = gram_supcon_v2_stats_plain(feats, *masks, temp)
+    else:
+        outs = GramSupconV2Stats.apply(feats, *masks, float(temp))
+    return _unbatch(outs, squeeze)
+
+
+gram_supcon_v2_stats.launches = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0}

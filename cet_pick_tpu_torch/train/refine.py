@@ -128,6 +128,16 @@ def make_train_step(model, config):
         metrics["loss"] = loss
         return loss, metrics
 
+    train_step = optimizer_step(model, loss_fn)
+    train_step.loss_fn = loss_fn  # the forward half, for timing by stage
+    return train_step
+
+
+def optimizer_step(model, loss_fn):
+    """``train_step(state, batch)``: ``loss_fn(batch) -> (loss, metrics)``
+    in train mode, backward and one Adam step; returns the metrics as device
+    scalars. Shared by the refinement and supervised steps."""
+
     def train_step(state, batch):
         model.train()
         loss, metrics = loss_fn(batch)
@@ -137,7 +147,6 @@ def make_train_step(model, config):
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
-    train_step.loss_fn = loss_fn  # the forward half, for timing by stage
     return train_step
 
 
@@ -180,6 +189,56 @@ def prepare_refine(config, log_fn=print, device="cuda"):
     return {"model": model, "state": state, "device": device}
 
 
+def run_epoch(train_step, state, dataset, rng, config, epoch, device,
+              log_fn=print, check=None):
+    """One epoch of ``train_step`` over ``dataset.epoch_batches``, shared by
+    the refinement and supervised loops (refine.py:308-420,
+    supervised.py:238-270): the epoch's learning rate, the ``--num_iters``
+    cap, batches built and copied to the device by a producer thread, and
+    metrics read one step late (train/metrics.py); ``check`` sees each
+    step's metrics as they arrive. Logs and returns the epoch's means, and
+    logs the samples/s of the steps after the first."""
+    set_learning_rate(state, lr_at_epoch(config, epoch))
+    epoch_metrics = []
+    cap = config.num_iters if config.num_iters >= 0 else None
+    drain = LaggedMetrics()
+
+    def collect(m):
+        if m is not None:
+            if check is not None:
+                check(m)
+            epoch_metrics.append(m)
+
+    t_first = None  # host clock when step 1 had finished
+    with PrefetchIterator(dataset.epoch_batches(rng, config.batch_size),
+                          device=device) as batches:
+        for batch in itertools.islice(batches, cap):
+            collect(drain.push(train_step(state, batch)))
+            if t_first is None:
+                # wait for step 1 once, so that the rate below covers the
+                # steady steps only
+                collect(drain.pop())
+                t_first = time.perf_counter()
+    collect(drain.pop())
+    t_end = time.perf_counter()
+    if not epoch_metrics:
+        raise ValueError(
+            f"no training batches: {len(dataset)} samples < batch_size "
+            f"{config.batch_size} with drop_last — lower batch_size"
+            + (" (--num_iters 0 caps every epoch at zero batches)"
+               if config.num_iters == 0 else ""))
+    state.epoch = epoch
+    means = {k: float(np.mean([m[k] for m in epoch_metrics]))
+             for k in epoch_metrics[0]}
+    log_fn(f"epoch {epoch}: " + " ".join(
+        f"{k}={v:.5f}" for k, v in means.items()))
+    if t_first is not None and len(epoch_metrics) > 1:
+        n = len(epoch_metrics) - 1
+        log_fn(f"epoch {epoch}: steps {len(epoch_metrics)}, after the first "
+               f"{n * config.batch_size / (t_end - t_first):.4f} samples/s")
+    return means
+
+
 def train_refine(config, dataset, val_dataset=None, num_epochs=None,
                  log_fn=print, prepared=None, device="cuda"):
     """Full training loop (refine.py:308-420): epochs, LR steps, the
@@ -201,57 +260,22 @@ def train_refine(config, dataset, val_dataset=None, num_epochs=None,
     num_epochs = num_epochs or config.num_epochs
     start_epoch = state.epoch + 1
     history = []
+
+    def check_positives(m):
+        # only the plain PU risk is undefined without positives (reference
+        # loss.py:275-276); pn and ge tolerate it. Metrics are read one
+        # step late, so the guard fires one step late and aborts the run.
+        if not config.pn and not config.ge and m.get("num_pos", 1) == 0:
+            raise ValueError(
+                "batch contains no positive heatmap voxels — annotations "
+                "missing or dropped (check --order and coordinate files)")
+
     # best-val tracking persists beside the checkpoints across --resume
     best_val = _load_best_val(config.save_dir) if config.resume else float("inf")
     with AsyncCheckpointer() as ckpt:
         for epoch in range(start_epoch, num_epochs + 1):
-            set_learning_rate(state, lr_at_epoch(config, epoch))
-            epoch_metrics = []
-            cap = config.num_iters if config.num_iters >= 0 else None
-            # metrics read one step late (train/metrics.py): the PU
-            # zero-positive guard fires one step late and aborts the run
-            drain = LaggedMetrics()
-
-            def _collect(m):
-                if m is None:
-                    return
-                # only the plain PU risk is undefined without positives
-                # (reference loss.py:275-276); pn and ge tolerate it
-                if not config.pn and not config.ge and m.get("num_pos", 1) == 0:
-                    raise ValueError(
-                        "batch contains no positive heatmap voxels — "
-                        "annotations missing or dropped (check --order and "
-                        "coordinate files)")
-                epoch_metrics.append(m)
-
-            t_first = None  # host clock when step 1 had finished
-            with PrefetchIterator(dataset.epoch_batches(rng, config.batch_size),
-                                  device=device) as batches:
-                for batch in itertools.islice(batches, cap):
-                    _collect(drain.push(train_step(state, batch)))
-                    if t_first is None:
-                        # wait for step 1 once, so that the rate below
-                        # covers the steady steps only
-                        _collect(drain.pop())
-                        t_first = time.perf_counter()
-            _collect(drain.pop())
-            t_end = time.perf_counter()
-            if not epoch_metrics:
-                raise ValueError(
-                    f"no training batches: {len(dataset)} samples < batch_size "
-                    f"{config.batch_size} with drop_last — lower batch_size")
-            state.epoch = epoch
-            means = {k: float(np.mean([m[k] for m in epoch_metrics]))
-                     for k in epoch_metrics[0]}
-            history.append(means)
-            log_fn(f"epoch {epoch}: " + " ".join(
-                f"{k}={v:.5f}" for k, v in means.items()))
-            if t_first is not None and len(epoch_metrics) > 1:
-                n = len(epoch_metrics) - 1
-                log_fn(f"epoch {epoch}: steps {len(epoch_metrics)}, after "
-                       f"the first {n * config.batch_size / (t_end - t_first):.4f}"
-                       f" samples/s")
-
+            history.append(run_epoch(train_step, state, dataset, rng, config,
+                                     epoch, device, log_fn, check_positives))
             snap = ckpt.save(os.path.join(config.save_dir, "model_last.pth"),
                              checkpoint_payload(state), config)
             if config.val_intervals > 0 and epoch % config.val_intervals == 0:

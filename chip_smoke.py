@@ -10,13 +10,16 @@ non-zero; nothing falls back to the CPU):
 1. card      the card's name and power limit (nvidia-smi), torch and CUDA
 2. build     nvcc builds every kernel of the port from csrc/, in parallel
 3. kernels   each kernel against its plain PyTorch version on the card, at
-             the shapes the main path gives it, with times: the kernel, the
+             the shapes the main paths give it, with times: the kernel, the
              plain version, one library call (for the gram kernels the gram
              product alone), and the bound (the least time the card could
-             take); the gram kernels forward and backward, values and
-             gradients
-4. model     unet_4 with seeded weights: tiled == full forward on the card,
-             and the card's forward == the CPU forward on a small volume
+             take): the z-tap kernel at C = F = 32 (unet_4) and 128
+             (unetw_3); the row and logit gram kernels at C = 32 and the row
+             kernel at C = 128, and the single-view (v2) gram kernel of the
+             cr step, forward and backward, values and gradients
+4. model     unet_4 and unetw_3 with seeded weights: tiled == full forward
+             on the card, and the card's forward == the CPU forward on a
+             small volume
 5. train     ``python -m cet_pick_tpu_torch train --task semi`` (unet_4,
              PU focal + debiased contrastive + consistency) on two synthetic
              256x512x512 volumes with their planted particles as the
@@ -30,6 +33,17 @@ non-zero; nothing falls back to the CPU):
              times, the launch count of every kernel during that run, and
              the F1 of the picks against the planted particles (> 0.7)
 7. breakdown device time of one volume's forward + decode by stage
+8. train_cr  ``train --task cr --pn`` (unet_4) on the same volumes: the
+             heatmap loss falls from the first epoch to the last, and each
+             v2 gram launch count equals the number of steps; samples/s
+9. train_tomo 20 steps of ``train --task tomo --pn``, metrics finite
+10. unetw    ``train --task semi --arch unetw_3`` on the same volumes (the
+             row gram at C = 128; the loss finite and below the first
+             epoch's in a later epoch), one of its train steps by stage,
+             then ``test --arch unetw_3`` with its ``model_last.pth`` (the
+             z-tap kernel at C = F = 128): outputs checked, F1 > 0.7,
+             per-stage times, the peak device bytes per fused input voxel,
+             and its forward by stage
 
 Each train / test run is a main-path run: every launch count is set to 0
 just before it and read just after. Then the nvidia-smi line, a
@@ -81,9 +95,11 @@ PEAKS = (("H100 PCIe", 51.2e12, 2.0e12), ("H100 NVL", 60.0e12, 3.9e12),
 
 # The main path: the Config defaults (unet_4, tile (64, 512, 512), halo 3)
 # on a 256x512x512 volume fuse 4 z windows of 70 slices, so the head's
-# z-tap conv sees (4, 70, 256, 256, 32).
+# z-tap conv sees (4, 70, 256, 256, 32); unetw_3's, at output stride 4 and
+# 128 channels, (4, 70, 128, 128, 128).
 VOLUME = (256, 512, 512)
 MAIN_ZTAP_SHAPE = (4, 70, 256, 256, 32)
+UNETW_ZTAP_SHAPE = (4, 70, 128, 128, 128)
 ZTAP_TOL = 1e-4  # f32 sums of 864 unit-scale terms, in another order
 MODEL_TOL = 1e-5  # heatmap probabilities, same weights, another batch size
 CPU_TOL = 5e-5  # heatmap probabilities, card vs CPU (the port's JAX bar)
@@ -95,6 +111,12 @@ DEVICE = "cuda"
 # batch of two.
 GRAM_MAIN = (1, 24576, 32)
 GRAM_RAGGED = (2, 1000, 32)
+# unetw_3's semi step: 2 x 2 x 6 x 16 x 16 pixels of its C = 128 proj head
+GRAM_UNETW = (1, 6144, 128)
+# The cr step's single-view gram: batch 1 x 2 crops, each 6 x 32 x 32
+# pixels of the C = 32 proj head; and a ragged shape
+V2_MAIN = (2, 6144, 32)
+V2_RAGGED = (2, 1000, 32)
 TEMP = 0.07
 GRAM_VAL = (2e-5, 1e-6)    # rtol, atol: tests/test_torch_gram.py
 GRAM_LSUM = (2e-5, 1e-5)   # logit sums cancel
@@ -109,6 +131,9 @@ GRAM_GRAD = (3e-4, 3e-5)
 TRAIN_EPOCHS = 4
 PN_STEPS = 20
 BREAKDOWN_STEPS = 10
+CR_EPOCHS = 3
+TOMO_STEPS = 20
+UNETW_EPOCHS = 4
 F1_GATE = 0.7      # tests/test_e2e.py:86
 MATCH_RADIUS = 5   # tests/test_e2e.py:85
 
@@ -176,10 +201,15 @@ def phase_build():
 
 
 def phase_kernels(peak_flops, peak_bw):
+    """The z-tap kernel against its plain version; times at the two main
+    path shapes. Returns {"unet": record, "unetw": record}."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    timed = {MAIN_ZTAP_SHAPE: "unet", UNETW_ZTAP_SHAPE: "unetw"}
     cases = [(MAIN_ZTAP_SHAPE, 32, True), ((1,) + MAIN_ZTAP_SHAPE[1:], 32, False),
-             ((2, 5, 37, 45, 32), 32, True), ((1, 4, 30, 33, 16), 16, True)]
-    for i, (shape, f, relu) in enumerate(cases):
+             ((2, 5, 37, 45, 32), 32, True), ((1, 4, 30, 33, 16), 16, True),
+             (UNETW_ZTAP_SHAPE, 128, True), ((1, 5, 37, 45, 128), 128, True)]
+    main = {}
+    for shape, f, relu in cases:
         c = shape[-1]
         x = torch.randn(shape, device=DEVICE, generator=gen)
         k = torch.randn((3, 3, 3, c, f), device=DEVICE, generator=gen)
@@ -197,7 +227,7 @@ def phase_kernels(peak_flops, peak_bw):
             raise RuntimeError(f"ztap_dilated_conv disagrees with its plain "
                                f"version at {shape}: {err}")
         del y, ref
-        if i == 0:  # times at the main-path shape
+        if shape in timed and relu:  # times at the main-path shapes
             w_ncdhw = k.permute(4, 3, 0, 1, 2).contiguous()
             x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
             with torch.inference_mode():
@@ -214,23 +244,24 @@ def phase_kernels(peak_flops, peak_bw):
                        bound_by="operations" if flops / peak_flops
                        > nbytes / peak_bw else "bytes")
             rec["achieved_tflops"] = flops / rec["ms"] / 1e9
-            main_rec = dict(rec)
+            main[timed[shape]] = dict(rec)
             del x_ncdhw
         emit(rec)
         del x, k
         torch.cuda.empty_cache()
-    return main_rec
+    return main
 
 
 def gram_work(variant, shape, backward):
     """(FLOP, bytes) of one gram call: FMA products only (the TPU kernel's
     count: one gram product forward; the sims recompute, W.F and W^T.F
-    backward), each input read once and each output written once."""
+    backward), each input read once and each output written once (the v2
+    backward also reads the forward's row max)."""
     b, m, c = shape
-    masks = 2 if variant == "row" else 1
-    outs = 3 if variant == "row" else 2
+    masks = 1 if variant == "logit" else 2
+    outs = {"row": 3, "logit": 2, "v2": 4}[variant]
     flops = 2.0 * b * m * m * c * (3 if backward else 1)
-    if backward:  # feats, masks, cotangents in; the gradient out
+    if backward:  # feats, masks, cotangents (and v2's max) in; the gradient out
         nbytes = 4.0 * (2 * b * m * c + (masks + outs) * b * m)
     else:
         nbytes = 4.0 * (b * m * c + (masks + outs) * b * m)
@@ -270,25 +301,36 @@ def time_backward_ms(make_loss, feats, iters):
 
 def phase_gram(peak_flops, peak_bw):
     """The gram kernels, forward and backward, against their plain
-    versions at the train step's shape and a ragged batch. Returns, per
-    variant, the main-shape record."""
+    versions: the row and logit kernels at the unet_4 semi step's shape and
+    a ragged batch, the row kernel at unetw_3's, and the v2 kernel at the
+    cr step's and a ragged batch. Returns the main-shape records by key
+    ("row", "logit", "row_c128", "v2")."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     kernels = {"row": (G.gram_row_stats, G.gram_row_stats_plain, G._ROW),
                "logit": (G.gram_logit_stats, G.gram_logit_stats_plain,
-                         G._LOGIT)}
+                         G._LOGIT),
+               "v2": (G.gram_supcon_v2_stats, G.gram_supcon_v2_stats_plain,
+                      G._V2)}
+    cases = [(GRAM_MAIN, ("row", "logit"), ""), (GRAM_RAGGED, ("row", "logit"), None),
+             (GRAM_UNETW, ("row",), "_c128"), (V2_MAIN, ("v2",), ""),
+             (V2_RAGGED, ("v2",), None)]
     main = {}
-    for shape in (GRAM_MAIN, GRAM_RAGGED):
+    for shape, variants, suffix in cases:
         b, m, c = shape
+        # unit features: the proj heads are L2-normalized (v2 takes them as
+        # they are, as raw features)
         f = torch.randn(shape, device=DEVICE, generator=gen)
         f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
-        # masks as a PU crop gives them: a few positives, the rest "other"
+        # masks as a crop gives them: a few positives, the rest "other" (v2:
+        # negatives)
         pos = (torch.rand((b, m), device=DEVICE, generator=gen)
                < 0.02).float()
         other = 1.0 - pos
         w = [torch.randn((b, m), device=DEVICE, generator=gen)
-             for _ in range(3)]
-        for variant, (fn, plain, code) in kernels.items():
-            masks = (pos, other) if variant == "row" else (pos,)
+             for _ in range(4)]
+        for variant in variants:
+            fn, plain, code = kernels[variant]
+            masks = (pos,) if variant == "logit" else (pos, other)
 
             ft = f.detach().requires_grad_(True)
             got = fn(ft, *masks, TEMP)
@@ -300,12 +342,21 @@ def phase_gram(peak_flops, peak_bw):
                 sum((wi * o).sum() for wi, o in zip(w, want)), fp)
             torch.cuda.synchronize()
             tols = [GRAM_VAL] * len(got)
+            scaled = [False] * len(got)
             if variant == "logit":
                 tols[0] = GRAM_LSUM
-            errs = [_allclose(g, r, t) for g, r, t in zip(got, want, tols)]
+            if variant == "v2":
+                # the sims sums add up M terms of size up to 1/T that cancel:
+                # their absolute bar scales like the gradient's
+                tols[1] = tols[2] = GRAM_LSUM
+                scaled[1] = scaled[2] = True
+            errs = [_allclose(g, r, t, sc)
+                    for g, r, t, sc in zip(got, want, tols, scaled)]
             grad_err, grad_ok = _allclose(grad, want_grad, GRAM_GRAD,
                                           scaled=True)
-            rec = {"phase": "kernels", "kernel": f"gram_{variant}_stats",
+            name = {"v2": "gram_supcon_v2_stats"}.get(
+                variant, f"gram_{variant}_stats")
+            rec = {"phase": "kernels", "kernel": name,
                    "shape": list(shape), "temp": TEMP,
                    "max_abs_err": max(e for e, _ in errs),
                    "max_abs_err_by_output": [e for e, _ in errs],
@@ -314,32 +365,36 @@ def phase_gram(peak_flops, peak_bw):
                    "grad_max_abs": want_grad.abs().max().item(),
                    "grad_rel_norm_err": ((grad - want_grad).norm()
                                          / want_grad.norm()).item(),
-                   "tol": tols, "grad_tol": GRAM_GRAD}
+                   "tol": tols, "tol_scaled": scaled, "grad_tol": GRAM_GRAD}
             if not all(ok for _, ok in errs) or not grad_ok:
                 emit(rec)
-                raise RuntimeError(f"gram_{variant}_stats disagrees with its "
-                                   f"plain version at {shape}")
-            if shape == GRAM_MAIN:
-                cts = [torch.ones((b, m), device=DEVICE)
-                       for _ in range(len(got))]
+                raise RuntimeError(f"{name} disagrees with its plain version "
+                                   f"at {shape}")
+            if suffix is not None:
+                n_cts = 3 if variant != "logit" else 2
+                cts = [torch.ones((b, m), device=DEVICE) for _ in range(n_cts)]
                 gbuf = torch.empty_like(f)
                 with torch.no_grad():
+                    mx = got[0].detach() if variant == "v2" else None
                     rec["ms"] = {
                         "fwd": time_ms(lambda: G._fwd(code, f, masks, TEMP),
                                        20),
                         "bwd_rows": time_ms(lambda: G._bwd_pass(
-                            code, G._PASS_ROWS, f, masks, TEMP, cts, gbuf), 10),
+                            code, G._PASS_ROWS, f, masks, TEMP, cts, gbuf,
+                            mx), 10),
                         "bwd_cols": time_ms(lambda: G._bwd_pass(
-                            code, G._PASS_COLS, f, masks, TEMP, cts, gbuf), 10),
+                            code, G._PASS_COLS, f, masks, TEMP, cts, gbuf,
+                            mx), 10),
                     }
                     rec["plain_ms"] = {"fwd": time_ms(
                         lambda: plain(f, *masks, TEMP), 5)}
                     rec["library_ms"] = time_ms(
-                        lambda: torch.matmul(f[0], f[0].T), 20)
+                        lambda: torch.matmul(f, f.transpose(1, 2)), 20)
                 rec["plain_ms"]["bwd"] = time_backward_ms(
                     lambda ff: sum((wi * o).sum() for wi, o in
                                    zip(w, plain(ff, *masks, TEMP))), f, 3)
-                rec["library"] = "torch.matmul(f, f.T), one sample, TF32 off"
+                rec["library"] = ("torch.matmul(f, f^T) of the batch, TF32 "
+                                  "off")
                 for part, backward in (("fwd", False), ("bwd", True)):
                     flops, nbytes = gram_work(variant, shape, backward)
                     ms = rec["ms"]["fwd"] if part == "fwd" else \
@@ -352,7 +407,7 @@ def phase_gram(peak_flops, peak_bw):
                                                if flops / peak_flops
                                                > nbytes / peak_bw else "bytes")
                     rec[f"{part}_achieved_tflops"] = flops / ms / 1e9
-                main[variant] = rec
+                main[variant + suffix] = rec
             emit(rec)
             del got, want, grad, want_grad, ft, fp
         del f
@@ -381,9 +436,9 @@ def pick_mismatches(hm, ref, k=200, nms=3):
     return len(differ), outside
 
 
-def phase_model():
+def phase_model(arch):
     torch.manual_seed(0)
-    cfg = Config(task="semi", arch="unet_4").finalize()
+    cfg = Config(task="semi", arch=arch).finalize()
     model = create_detector(cfg).to(DEVICE).eval()
     gen = np.random.default_rng(0)
 
@@ -424,10 +479,11 @@ def expected_rows(hm, cfg):
     20-px border filters (tomo_det.py:53-95), restated here."""
     dets = tomo_decode(torch.from_numpy(hm).to(DEVICE), kernel=cfg.nms,
                        k=cfg.K).cpu().numpy()
-    d, h, w = hm.shape[0], hm.shape[1] * 2, hm.shape[2] * 2
+    dr = cfg.down_ratio
+    d, h, w = hm.shape[0], hm.shape[1] * dr, hm.shape[2] * dr
     rows = set()
     for x, y, z, score, _ in dets:
-        x, y, z = int(np.floor(x * 2)), int(np.floor(y * 2)), int(z)
+        x, y, z = int(np.floor(x * dr)), int(np.floor(y * dr)), int(z)
         if (score > cfg.out_thresh and cfg.cutoff_z <= z <= d - cfg.cutoff_z
                 and 20 < x < w - 20 and 20 < y < h - 20):
             rows.add((str(x), str(z), str(y)))
@@ -471,16 +527,18 @@ def write_data(work):
     return names, planted
 
 
+GRAMS = (G.gram_row_stats, G.gram_logit_stats, G.gram_supcon_v2_stats)
+
+
 def reset_launches():
     ztap_dilated_conv.launches = 0
-    for fn in (G.gram_row_stats, G.gram_logit_stats):
+    for fn in GRAMS:
         fn.launches.update(dict.fromkeys(fn.launches, 0))
 
 
 def read_launches():
     return {"ztap_dilated_conv": ztap_dilated_conv.launches,
-            "gram_row_stats": dict(G.gram_row_stats.launches),
-            "gram_logit_stats": dict(G.gram_logit_stats.launches)}
+            **{fn.__name__: dict(fn.launches) for fn in GRAMS}}
 
 
 def run_cli(argv):
@@ -499,18 +557,22 @@ def run_cli(argv):
     return out.getvalue().splitlines(), launches, wall
 
 
-def _epoch_lines(lines):
+def _epoch_lines(lines, steps=None):
     """{epoch: {metric: value}} from the train log's ``epoch N: k=v ...``
-    lines, and the samples/s of each epoch's steps after its first."""
+    lines, and the samples/s of each epoch's steps after its first; the
+    step count of each such epoch goes into ``steps`` when given."""
     means, rates = {}, {}
     for line in lines:
         m = re.match(r"epoch (\d+): (.*)", line)
         if not m:
             continue
         epoch, rest = int(m.group(1)), m.group(2)
-        r = re.search(r"after the first ([0-9.]+) samples/s", rest)
+        r = re.search(r"steps (\d+), after the first ([0-9.]+) samples/s",
+                      rest)
         if r:
-            rates[epoch] = float(r.group(1))
+            rates[epoch] = float(r.group(2))
+            if steps is not None:
+                steps[epoch] = int(r.group(1))
         elif "=" in rest:
             means.setdefault(epoch, {}).update(
                 (k, float(v)) for k, v in (kv.split("=") for kv in rest.split()))
@@ -557,21 +619,84 @@ def phase_train(work):
     return rec, launches, pn_launches
 
 
+def phase_train_supervised(work):
+    """``train --task cr --pn`` for CR_EPOCHS epochs, then TOMO_STEPS steps
+    of ``--task tomo --pn`` (unet_4, the Config defaults). Returns the cr
+    run's launches."""
+    common = ["--pn", "--arch", "unet_4", "--order", "zxy", "--data_dir",
+              work, "--root_dir", work, "--device", DEVICE]
+    lines, launches, wall = run_cli(
+        ["train", "--task", "cr", *common, "--num_epochs", str(CR_EPOCHS)])
+    steps = {}
+    means, rates = _epoch_lines(lines, steps)
+    hm_losses = [means[e]["hm_loss"] for e in sorted(means)]
+    n_steps = sum(steps.values())
+    emit({"phase": "train_cr", "arch": "unet_4", "epochs": CR_EPOCHS,
+          "steps": n_steps, "launches": launches, "epoch_means": means,
+          "steady_samples_per_s": rates, "cli_wall_s": wall})
+    if not all(math.isfinite(v) for m in means.values() for v in m.values()) \
+            or len(hm_losses) < 2 or not hm_losses[-1] < hm_losses[0]:
+        raise RuntimeError(f"cr hm_loss not finite and falling: {hm_losses}")
+    v2 = launches["gram_supcon_v2_stats"]
+    if len(steps) != CR_EPOCHS or set(v2.values()) != {n_steps}:
+        raise RuntimeError(f"cr: v2 gram launches {v2} != {n_steps} steps")
+
+    lines, tomo_launches, wall = run_cli(
+        ["train", "--task", "tomo", *common, "--num_epochs", "1",
+         "--num_iters", str(TOMO_STEPS)])
+    means, rates = _epoch_lines(lines)
+    emit({"phase": "train_tomo", "arch": "unet_4", "steps": TOMO_STEPS,
+          "launches": tomo_launches, "epoch_means": means,
+          "steady_samples_per_s": rates, "cli_wall_s": wall})
+    if not means or not all(math.isfinite(v) for v in means[1].values()):
+        raise RuntimeError(f"tomo train metrics not finite: {means}")
+    return launches
+
+
+def phase_train_unetw(work):
+    """``train --task semi --arch unetw_3`` (PU + contrastive, the row gram
+    at C = 128) with validation at its last epoch (the z-tap kernel at
+    C = F = 128). Returns its launches."""
+    lines, launches, wall = run_cli(
+        ["train", "--task", "semi", "--arch", "unetw_3", "--exp_id", "unetw",
+         "--order", "zxy", "--data_dir", work, "--root_dir", work,
+         "--device", DEVICE, "--num_epochs", str(UNETW_EPOCHS),
+         "--val_intervals", str(UNETW_EPOCHS)])
+    means, rates = _epoch_lines(lines)
+    losses = [means[e]["loss"] for e in sorted(means) if "loss" in means[e]]
+    emit({"phase": "train_unetw", "arch": "unetw_3", "epochs": UNETW_EPOCHS,
+          "launches": launches, "epoch_means": means,
+          "steady_samples_per_s": rates, "cli_wall_s": wall,
+          "val_focal": [ln for ln in lines if "val_focal" in ln]})
+    # unetw_3's last epoch at lr 1e-3 can spike above its first (PERF.md);
+    # the picks' F1 of the test phase checks what training produced
+    if not all(math.isfinite(v) for v in losses) or len(losses) < 2 \
+            or not min(losses[1:]) < losses[0]:
+        raise RuntimeError(f"unetw train loss not finite and falling: "
+                           f"{losses}")
+    if min(launches["gram_row_stats"].values()) == 0 \
+            or launches["ztap_dilated_conv"] == 0:
+        raise RuntimeError(f"unetw train did not launch every kernel: "
+                           f"{launches}")
+    return launches
+
+
 def _event():
     e = torch.cuda.Event(enable_timing=True)
     e.record()
     return e
 
 
-def phase_train_breakdown(work):
+def phase_train_breakdown(work, arch="unet_4"):
     """One default train step by stage: device time from CUDA events at the
     model's forward boundaries and around the losses, backward and Adam
     (each step synchronized); the wall time of unsynchronized steps, as the
     loop runs them; kernel time per step from torch.profiler and so the
     card's busy share; and the host stages the loop overlaps (one batch's
     crops, one checkpoint write). A fresh model on the main path's data."""
-    cfg = Config(task="semi", arch="unet_4", contrastive=True, data_dir=work,
-                 order="zxy", root_dir=work, exp_id="breakdown").finalize()
+    cfg = Config(task="semi", arch=arch, contrastive=True, data_dir=work,
+                 order="zxy", root_dir=work,
+                 exp_id=f"breakdown_{arch}").finalize()
     ds = RefineDataset(cfg, "train")
     prepared = prepare_refine(cfg, log_fn=lambda *_: None, device=DEVICE)
     model, state = prepared["model"], prepared["state"]
@@ -645,8 +770,8 @@ def phase_train_breakdown(work):
     device_ms = sum(ms for _, ms in kernels)
     t0 = time.perf_counter()
     save_checkpoint(os.path.join(work, "breakdown.pth"), state, cfg)
-    rec = {"phase": "train_breakdown", "what": "device ms per default "
-           "train step (unet_4, batch 1, 6x64x64 pairs, contrastive)",
+    rec = {"phase": "train_breakdown", "arch": arch, "what": "device ms per "
+           "default train step (batch 1, 6x64x64 pairs, contrastive)",
            "stages_ms": stages, "wall_ms_per_step": wall_ms,
            "profiled_kernel_ms_per_step": device_ms,
            "device_busy_share": device_ms / wall_ms if device_ms else None,
@@ -677,11 +802,14 @@ def pick_f1(out_dir, names, planted):
     return evaluate_detections(targets, preds, radius=MATCH_RADIUS)
 
 
-def phase_main_path(work, names, planted):
+def phase_main_path(work, names, planted, arch="unet_4", exp_id="default",
+                    phase="main_path"):
     """``test`` with the trained checkpoint at its default path."""
-    argv = ["test", "--arch", "unet_4", "--order", "zxy", "--data_dir", work,
-            "--root_dir", work, "--with_score", "--device", DEVICE]
-    cfg = Config(task="semi", arch="unet_4").finalize()  # what `test` uses
+    argv = ["test", "--arch", arch, "--exp_id", exp_id, "--order", "zxy",
+            "--data_dir", work, "--root_dir", work, "--with_score",
+            "--device", DEVICE]
+    cfg = Config(task="semi", arch=arch).finalize()  # what `test` uses
+    dr = cfg.down_ratio
 
     torch.cuda.reset_peak_memory_stats()
     lines, launches, wall = run_cli(argv)
@@ -695,12 +823,12 @@ def phase_main_path(work, names, planted):
         vals = rest.split()
         times[name] = {k: float(v.rstrip("s"))
                        for k, v in zip(vals[::2], vals[1::2])}
-    out_dir = os.path.join(work, "exp", "semi", "default", "output")
+    out_dir = os.path.join(work, "exp", "semi", exp_id, "output")
     d, h, w = VOLUME
     n_picks = {}
     for name in names:
         hm = read_mrc(os.path.join(out_dir, f"{name}_hm.mrc"))
-        if hm.shape != (h // 2, d, w // 2) or not np.isfinite(hm).all() \
+        if hm.shape != (h // dr, d, w // dr) or not np.isfinite(hm).all() \
                 or hm.min() < 1e-4 - 1e-7 or hm.max() > 1 - 1e-4 + 1e-7:
             raise RuntimeError(f"{name}_hm.mrc: bad heatmap {hm.shape}")
         with open(os.path.join(out_dir, f"{name}.txt")) as f:
@@ -721,7 +849,7 @@ def phase_main_path(work, names, planted):
     host_load_s = time.perf_counter() - t0
     steady = times[names[1]]
     voxels = d * h * w
-    rec = {"phase": "main_path", "volume": list(VOLUME), "volumes": 2,
+    rec = {"phase": phase, "arch": arch, "volume": list(VOLUME), "volumes": 2,
            "launches": launches, "times_s": times,
            "steady_state_voxel_per_s": voxels / steady["tot"],
            "steady_state_net_dec_voxel_per_s": voxels / steady["net+dec"],
@@ -740,10 +868,10 @@ def phase_main_path(work, names, planted):
     return rec
 
 
-def phase_breakdown(ckpt):
+def phase_breakdown(ckpt, arch="unet_4"):
     """Device time of one fused forward + decode of the main-path volume by
     stage, from CUDA events recorded at module boundaries (stream order)."""
-    cfg = Config(task="semi", arch="unet_4", load_model=ckpt).finalize()
+    cfg = Config(task="semi", arch=arch, load_model=ckpt).finalize()
     det = TomoDetector(cfg, device=DEVICE)
     model = det.model
     events = {}
@@ -770,14 +898,52 @@ def phase_breakdown(ckpt):
     for h in handles:
         h.remove()
     span = lambda a, b: a.elapsed_time(b)  # noqa: E731
-    rec = {"phase": "breakdown", "what": "device ms, one fused volume",
+    rec = {"phase": "breakdown", "arch": arch,
+           "what": "device ms, one fused volume",
            "total_ms": span(start, end),
            "dequant_stem_ms": span(start, events["unet_in"]),
            "unet_ms": span(events["unet_in"], events["unet_out"]),
            "to_channels_last_ms": span(events["unet_out"], events["head_in"]),
            "ztap_head_ms": span(events["head_in"], events["head_out"]),
            "hm_head_sigmoid_decode_ms": span(events["head_out"], end)}
+    rec.update(memory_by_module(model, lambda: det.process(vol, lo=0.0,
+                                                           hi=255.0)))
     emit(rec)
+
+
+def memory_by_module(model, run):
+    """Peak device bytes of ``run()`` (a synchronized, untimed pass), the
+    most that tensors alone held after any module returned, and the
+    largest transients: per leaf module, the peak during its call less what
+    was allocated after it (a library convolution's workspace)."""
+    rows = []
+
+    def pre(m, _):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def post(name):
+        def hook(m, _, out):
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            rows.append((name, torch.cuda.max_memory_allocated() - after, after))
+        return hook
+
+    leaves = [(n, m) for n, m in model.named_modules()
+              if n and not list(m.children())]
+    handles = [h for n, m in leaves for h in (
+        m.register_forward_pre_hook(pre), m.register_forward_hook(post(n)))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = max([torch.cuda.max_memory_allocated()] + [t + a for _, t, a in rows])
+    for h in handles:
+        h.remove()
+    rows.sort(key=lambda r: -r[1])
+    return {"peak_bytes": peak,
+            "max_bytes_after_a_module": max(a for _, _, a in rows),
+            "largest_transients_bytes": [(n, t) for n, t, _ in rows[:4]]}
 
 
 def _gram_entries(name, rec, launches, fwd_line, bwd_line):
@@ -802,6 +968,17 @@ def _gram_entries(name, rec, launches, fwd_line, bwd_line):
     ]
 
 
+def _ztap_entry(name, rec, launches, launches_in_train):
+    return {"name": name, "route": "cuda",
+            "source": "cet_pick_tpu_torch/csrc/ztap_conv.cu",
+            "replaces": "cet_pick_tpu/ops/pallas_head.py:95",
+            "launches": launches, "launches_in_train": launches_in_train,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": rec["shape"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -813,7 +990,8 @@ def main():
     phase_build()
     ztap = phase_kernels(peak_flops, peak_bw)
     gram = phase_gram(peak_flops, peak_bw)
-    phase_model()
+    for arch in ("unet_4", "unetw_3"):
+        phase_model(arch)
     with tempfile.TemporaryDirectory() as work:
         names, planted = write_data(work)
         _, train_launches, pn_launches = phase_train(work)
@@ -821,21 +999,29 @@ def main():
         main_rec = phase_main_path(work, names, planted)
         phase_breakdown(os.path.join(work, "exp", "semi", "default",
                                      "model_last.pth"))
-    kernels = [{
-        "name": "ztap_dilated_conv", "route": "cuda",
-        "source": "cet_pick_tpu_torch/csrc/ztap_conv.cu",
-        "replaces": "cet_pick_tpu/ops/pallas_head.py:95",
-        "launches": main_rec["launches"]["ztap_dilated_conv"],
-        "launches_in_train": train_launches["ztap_dilated_conv"],
-        "max_abs_err": ztap["max_abs_err"], "ms": ztap["ms"],
-        "plain_ms": ztap["plain_ms"], "bound_ms": ztap["bound_ms"],
-        "bound_by": ztap["bound_by"], "library_ms": ztap["library_ms"],
-        "shape": ztap["shape"],
-    }]
+        cr_launches = phase_train_supervised(work)
+        unetw_train = phase_train_unetw(work)
+        phase_train_breakdown(work, "unetw_3")
+        unetw_rec = phase_main_path(work, names, planted, "unetw_3", "unetw",
+                                    phase="unetw_test")
+        phase_breakdown(os.path.join(work, "exp", "semi", "unetw",
+                                     "model_last.pth"), "unetw_3")
+    kernels = [
+        _ztap_entry("ztap_dilated_conv", ztap["unet"],
+                    main_rec["launches"]["ztap_dilated_conv"],
+                    train_launches["ztap_dilated_conv"]),
+        _ztap_entry("ztap_dilated_conv[C=F=128]", ztap["unetw"],
+                    unetw_rec["launches"]["ztap_dilated_conv"],
+                    unetw_train["ztap_dilated_conv"]),
+    ]
     kernels += _gram_entries("gram_row_stats", gram["row"],
                              train_launches["gram_row_stats"], 92, 109)
+    kernels += _gram_entries("gram_row_stats[C=128]", gram["row_c128"],
+                             unetw_train["gram_row_stats"], 92, 109)
     kernels += _gram_entries("gram_logit_stats", gram["logit"],
                              pn_launches["gram_logit_stats"], 244, 260)
+    kernels += _gram_entries("gram_supcon_v2_stats", gram["v2"],
+                             cr_launches["gram_supcon_v2_stats"], 366, 387)
     for k in kernels:
         k["peaks"] = variant
     print(smi)

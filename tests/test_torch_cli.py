@@ -46,15 +46,16 @@ def _read_rows(path):
     return {tuple(int(v) for v in r[:3]): r[3] for r in rows}
 
 
-def assert_picks_agree(port, ref, hm, kth_score):
-    """Row-for-row agreement outside the tie band (module docstring)."""
+def assert_picks_agree(port, ref, hm, kth_score, down=2):
+    """Row-for-row agreement outside the tie band (module docstring);
+    ``down`` is the heatmap's output stride."""
     for key in port.keys() & ref.keys():
         assert abs(port[key] - ref[key]) <= 5e-5, key
     r = NMS // 2
     for key in port.keys() ^ ref.keys():
         score = port.get(key, ref.get(key))
         x, z, y = key
-        z, y, x = z, y // 2, x // 2  # rows are at input resolution
+        z, y, x = z, y // down, x // down  # rows are at input resolution
         win = hm[max(z - 1, 0):z + 2, max(y - r, 0):y + r + 1,
                  max(x - r, 0):x + r + 1].ravel()
         near_neighbour = np.sum(np.abs(win - score) <= BAND) >= 2

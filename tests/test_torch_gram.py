@@ -192,3 +192,28 @@ def test_cuda_kernels_match_plain(cuda_device, variant, b, m, c):
     for g, r in zip(got, want):
         np.testing.assert_allclose(g, r, rtol=2e-5, atol=1e-5)
     np.testing.assert_allclose(grad, want_grad, **GRAD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["row", "logit"])
+def test_cuda_kernels_match_plain_at_unetw_shape(cuda_device, variant):
+    """The unetw_3 semi step's gram, (1, 6144, 128). Values at the bars
+    above; the gradient's absolute bar scales with its largest element, as
+    in chip_smoke.py: an element of the logit variant's gradient sums 6144
+    terms of size ~1/T that cancel, so two f32 orders differ by ~1e-5 of
+    the gradient's scale there."""
+    f, pos, other, w = _fixture(6144, 128, b=1, seed=5)
+    if variant == "row":
+        fn, plain, masks = gram_row_stats, gram_row_stats_plain, (pos, other)
+    else:
+        fn, plain, masks, w = (gram_logit_stats, gram_logit_stats_plain,
+                               (pos,), w[:2])
+    got, grad = _torch_value_and_grad(fn, f, masks, w, device=cuda_device)
+    want, want_grad = _torch_value_and_grad(plain, f, masks, w,
+                                            device=cuda_device)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g, r, rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        grad, want_grad, rtol=GRAD["rtol"],
+        atol=GRAD["atol"] * max(1.0, float(np.abs(want_grad).max())))

@@ -29,13 +29,14 @@ def _randomize(tree, rng, fn):
 
 
 def jax_variables(arch, seed=0, shape=(1, 6, 32, 32), weight_scale=1.0,
-                  task="semi"):
+                  task="semi", model=None):
     """(config, JAX model, numpy variables) with every BatchNorm scale/bias
     and running statistic randomized, so that carrying them across is
     really tested. ``weight_scale`` scales the conv kernels (keeps logits
-    out of the sigmoid clamp for pick tests)."""
+    out of the sigmoid clamp for pick tests). ``model``: a JAX model to use
+    in place of the config's."""
     cfg = JaxConfig(task=task, arch=arch).finalize()
-    model = jax_create_detector(cfg)
+    model = model or jax_create_detector(cfg)
     variables = model.init(jax.random.PRNGKey(seed),
                            np.zeros(shape, np.float32), train=False)
     rng = np.random.default_rng(seed)
@@ -146,7 +147,7 @@ def test_load_checkpoint_rejects_non_pth():
         load_checkpoint("exp/semi/default/model_last")
 
 
-@pytest.mark.parametrize("arch,dtype", [("unetw_2", "float32"),
+@pytest.mark.parametrize("arch,dtype", [("p3d_18", "float32"),
                                         ("res3d_18", "float32"),
                                         ("unet_2", "bfloat16")])
 def test_unported_configs_raise(arch, dtype):

@@ -54,25 +54,25 @@ MU_REL = 1e-4
 BN_ATOL = 5e-6
 
 
-def _batch(pn, seed=0, flip=0.3):
-    """B = 1, P = 2 crops of 6 x 16 x 16 and their 6 x 8 x 8 targets: a
-    plateau of 1s and a soft ring per crop, unlabeled (-1, PU) or negative
-    (0, pn) elsewhere."""
+def _batch(pn, seed=0, flip=0.3, down=2):
+    """B = 1, P = 2 crops of 6 x 8·down x 8·down and their 6 x 8 x 8 targets
+    (``down``: the model's output stride): a plateau of 1s and a soft ring
+    per crop, unlabeled (-1, PU) or negative (0, pn) elsewhere."""
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((1, 2, 6, 16, 16)).astype(np.float32)
+    x = rng.standard_normal((1, 2, 6, 8 * down, 8 * down)).astype(np.float32)
     hm = np.full((1, 2, 6, 8, 8), 0.0 if pn else -1.0, np.float32)
     for p, (z, y, xx) in enumerate([(2, 3, 4), (3, 5, 2)]):
         hm[0, p, z - 1:z + 2, y - 1:y + 2, xx - 1:xx + 2] = 0.4
         hm[0, p, z, y, xx] = 1.0
         hm[0, p, z, y, xx + 1] = 1.0
-        x[0, p, z, 2 * y:2 * y + 4, 2 * xx:2 * xx + 4] -= 2.0
+        x[0, p, z, down * y:down * (y + 2), down * xx:down * (xx + 2)] -= 2.0
     return {"input": x, "hm": hm, "flip_prob": np.array([flip], np.float32)}
 
 
-def _jax_state(cfg, variables):
+def _jax_state(cfg, variables, shape=(2, 6, 16, 16)):
     model = jax_create_detector(cfg)
     state = jax_create_state(model, cfg, jax.random.PRNGKey(0),
-                             np.zeros((2, 6, 16, 16), np.float32))
+                             np.zeros(shape, np.float32))
     state = state.replace(params=variables["params"],
                           batch_stats=variables["batch_stats"])
     return model, state

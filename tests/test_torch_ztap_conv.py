@@ -100,7 +100,9 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,f,relu", [((2, 5, 37, 45, 32), 32, True),
                                           ((1, 6, 64, 64, 32), 32, False),
-                                          ((1, 4, 30, 33, 16), 16, True)])
+                                          ((1, 4, 30, 33, 16), 16, True),
+                                          ((1, 5, 37, 45, 128), 128, True),
+                                          ((1, 3, 20, 24, 44), 64, False)])
 def test_cuda_kernel_matches_plain(cuda_device, shape, f, relu):
     x, k = _inputs(shape, f, seed=3)
     xt = torch.from_numpy(x).to(cuda_device)
