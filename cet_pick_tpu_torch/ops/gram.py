@@ -22,7 +22,9 @@ or (B, M). Gradients flow to ``feats`` only.
   ``GramSupconV2Stats``, whose forward and backward launch the hand-written
   Hopper kernels of ``csrc/gram_stats.cu`` (built by nvcc at first use,
   ``ops/_build.py``). Each launch adds one to the function's ``launches``
-  count: ``fwd``, ``bwd_rows`` (dF += W.F) and ``bwd_cols`` (dF += W^T.F).
+  count: ``fwd``; ``bwd``, the fused backward (dF = (W + W^T).F in one
+  pass); and ``bwd_reduce``, the fixed-order sum of the backward's
+  partials when its column tiles are cut into slices (``_slices``).
 * A CPU tensor takes the plain version, ``gram_row_stats_plain`` /
   ``gram_logit_stats_plain`` / ``gram_supcon_v2_stats_plain``: dense torch
   in row blocks (matmul, exp, masked sums), each block under
@@ -43,8 +45,9 @@ from torch.utils.checkpoint import checkpoint
 from cet_pick_tpu_torch.ops._build import load_library
 
 _ROW, _LOGIT, _V2 = 0, 1, 2
-_PASS_ROWS, _PASS_COLS = 0, 1
 _MAX_C = 128  # widest C the kernels are instantiated for
+_TILE = 64  # rows of a kernel block's tile
+_TARGET_BLOCKS = 1024  # the backward's grid: a few waves of 132 SMs
 
 
 # ---------------------------------------------------------------------------
@@ -131,11 +134,15 @@ def _cuda_fns():
                                             ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwd = lib.gram_stats_bwd_f32
-    bwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+    bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                             ctypes.c_void_p])
     bwd.restype = ctypes.c_int
-    return fwd, bwd
+    red = lib.gram_stats_bwd_reduce_f32
+    red.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    red.restype = ctypes.c_int
+    return fwd, bwd, red
 
 
 def _ptr(t):
@@ -170,27 +177,53 @@ def _fwd(variant, feats, masks, temp):
     return tuple(outs)
 
 
-def _bwd_pass(variant, pas, feats, masks, temp, cts, grad, mx=None):
-    """One backward kernel: ``_PASS_ROWS`` writes grad = W.F, ``_PASS_COLS``
-    adds W^T.F (launch the row pass first). ``mx``: V2's row max."""
+def _slices(m, b):
+    """(slices, column tiles per slice) of the fused backward at M = m and
+    batch b: the fewest slices that give the grid ``_TARGET_BLOCKS`` blocks,
+    from m and b alone, so a shape always sums in the same order."""
+    tiles = -(-m // _TILE)
+    want = min(tiles, -(-_TARGET_BLOCKS // (tiles * b)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
+
+
+def _bwd_fused(variant, feats, masks, temp, cts, out, slices, per, mx=None):
+    """The fused backward kernel: ``out`` is the gradient when ``slices`` is
+    1, else the (slices, B, M, C) partials. ``mx``: V2's row max."""
     b, m, c = feats.shape
     public, _ = _public(variant)
     other = masks[1] if len(masks) > 1 else None
     gptr = [_ptr(g) for g in cts] + [None] * (3 - len(cts))
-    _launch(public.__name__, public.launches,
-            "bwd_rows" if pas == _PASS_ROWS else "bwd_cols", _cuda_fns()[1],
-            variant, pas, _ptr(feats), _ptr(masks[0]), _ptr(other), *gptr,
-            _ptr(mx), _ptr(grad), b, m, c, 1.0 / temp, feats.device.index,
+    _launch(public.__name__, public.launches, "bwd", _cuda_fns()[1],
+            variant, _ptr(feats), _ptr(masks[0]), _ptr(other), *gptr,
+            _ptr(mx), _ptr(out), slices, per, b, m, c, 1.0 / temp,
+            feats.device.index,
             torch.cuda.current_stream(feats.device).cuda_stream)
+
+
+def _bwd_reduce(variant, part, grad):
+    """grad = the sum of the slices' partials, in slice order."""
+    public, _ = _public(variant)
+    _launch(public.__name__, public.launches, "bwd_reduce", _cuda_fns()[2],
+            _ptr(part), _ptr(grad), part.shape[0], grad.numel(),
+            grad.device.index,
+            torch.cuda.current_stream(grad.device).cuda_stream)
 
 
 def _bwd(variant, feats, masks, temp, cts, mx=None):
     cts = [torch.zeros_like(masks[0]) if g is None else g.contiguous()
            for g in cts]
     _check_same(feats, *cts)
+    b, m, _ = feats.shape
+    slices, per = _slices(m, b)
     grad = torch.empty_like(feats)
-    for pas in (_PASS_ROWS, _PASS_COLS):
-        _bwd_pass(variant, pas, feats, masks, temp, cts, grad, mx)
+    if slices == 1:
+        _bwd_fused(variant, feats, masks, temp, cts, grad, 1, per, mx)
+        return grad
+    part = torch.empty((slices,) + tuple(feats.shape), device=feats.device,
+                       dtype=feats.dtype)
+    _bwd_fused(variant, feats, masks, temp, cts, part, slices, per, mx)
+    _bwd_reduce(variant, part, grad)
     return grad
 
 
@@ -306,7 +339,7 @@ def gram_row_stats(feats, pos_mask, other_mask, temp):
     return _unbatch(outs, squeeze)
 
 
-gram_row_stats.launches = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0}
+gram_row_stats.launches = {"fwd": 0, "bwd": 0, "bwd_reduce": 0}
 
 
 def gram_logit_stats(feats, pos_mask, temp):
@@ -320,7 +353,7 @@ def gram_logit_stats(feats, pos_mask, temp):
     return _unbatch(outs, squeeze)
 
 
-gram_logit_stats.launches = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0}
+gram_logit_stats.launches = {"fwd": 0, "bwd": 0, "bwd_reduce": 0}
 
 
 def gram_supcon_v2_stats(feats, pos_mask, neg_mask, temp):
@@ -335,4 +368,4 @@ def gram_supcon_v2_stats(feats, pos_mask, neg_mask, temp):
     return _unbatch(outs, squeeze)
 
 
-gram_supcon_v2_stats.launches = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0}
+gram_supcon_v2_stats.launches = {"fwd": 0, "bwd": 0, "bwd_reduce": 0}

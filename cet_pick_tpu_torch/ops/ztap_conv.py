@@ -6,9 +6,10 @@ Port of the TPU kernel ``cet_pick_tpu/ops/pallas_head.py:95``
 ``x (B, D, H, W, C)``, ``kernel (3, 3, 3, C, F)`` -> ``(B, D, H, W, F)``.
 
 * ``ztap_dilated_conv`` is the wrapper. A CUDA tensor launches the
-  hand-written Hopper kernel in ``csrc/ztap_conv.cu`` (built by nvcc at first
-  use, see ``ops/_build.py``) and adds one to ``ztap_dilated_conv.launches``;
-  a CPU tensor takes the plain version. Any other input raises.
+  hand-written Hopper kernel in ``csrc/ztap_conv.cu`` (an implicit GEMM on
+  the tensor cores in 3xTF32, built by nvcc at first use, see
+  ``ops/_build.py``) and adds one to ``ztap_dilated_conv.launches``; a CPU
+  tensor takes the plain version. Any other input raises.
 * ``ztap_dilated_conv_plain`` is the plain PyTorch version: the z-tap form
   of the JAX ``_ZTapDilatedConv`` (models/detector.py:56-79) — one 2D
   dilated conv with 3F outputs, then a shifted z-add, then the ReLU. The CPU
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from cet_pick_tpu_torch.ops._build import load_library
 
 _KERNEL_GROUP = 32  # the CUDA kernel takes F = 16 or a multiple of this
+_MAX_DILATION = 8  # and a halo of at most this many pixels
 
 
 def ztap_dilated_conv_plain(x, kernel, *, dilation: int = 4,
@@ -88,10 +90,12 @@ def ztap_dilated_conv(x, kernel, *, dilation: int = 4, relu: bool = True):
                          f"{x.device}")
     b, d, h, w, c = x.shape
     f = kernel.shape[-1]
-    if not (f == 16 or f % _KERNEL_GROUP == 0) or c % 4:
+    if not (f == 16 or f % _KERNEL_GROUP == 0) or c % 4 \
+            or not 1 <= dilation <= _MAX_DILATION:
         raise ValueError(
             f"the CUDA kernel takes F = 16 or a multiple of {_KERNEL_GROUP}, "
-            f"and C % 4 == 0 (got C={c}, F={f})")
+            f"C % 4 == 0 and 1 <= dilation <= {_MAX_DILATION} (got C={c}, "
+            f"F={f}, dilation={dilation})")
     if x.data_ptr() % 16 or kernel.data_ptr() % 16:
         raise ValueError("ztap_dilated_conv wants 16-byte aligned tensors")
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):

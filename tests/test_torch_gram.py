@@ -24,10 +24,13 @@ import pytest
 import torch
 
 from cet_pick_tpu_torch.ops.gram import (
+    _slices,
     gram_logit_stats,
     gram_logit_stats_plain,
     gram_row_stats,
     gram_row_stats_plain,
+    gram_supcon_v2_stats,
+    gram_supcon_v2_stats_plain,
 )
 
 torch.set_num_threads(1)
@@ -91,8 +94,8 @@ def test_row_stats_match_jax(m, c):
             np.testing.assert_allclose(g, np.asarray(r), **VAL)
         np.testing.assert_allclose(
             grad, np.asarray(jax.grad(loss(ref))(jnp.asarray(f))), **GRAD)
-    assert gram_row_stats.launches == {"fwd": 0, "bwd_rows": 0,
-                                       "bwd_cols": 0}  # CPU: no kernel
+    assert gram_row_stats.launches == {"fwd": 0, "bwd": 0,
+                                       "bwd_reduce": 0}  # CPU: no kernel
 
 
 @pytest.mark.parametrize("c", [8, 32])
@@ -163,6 +166,23 @@ def test_wrapper_rejects_bad_input(bad, err):
         gram_row_stats(*bad(*_t(f, pos, other)), TEMP)
 
 
+def _expected_launches(b, m):
+    """One forward, one fused backward, and the backward's fixed-order
+    reduce when its column tiles are cut into more than one slice."""
+    return {"fwd": 1, "bwd": 1, "bwd_reduce": int(_slices(m, b)[0] > 1)}
+
+
+@pytest.mark.parametrize("m,b", [(24576, 1), (6144, 1), (6144, 2),
+                                 (1000, 2), (64, 1), (200000, 1)])
+def test_backward_slices_cover_every_tile(m, b):
+    """The fused backward's slices cover the column tiles exactly once,
+    none is empty, and the grid has about 1024 blocks where M allows."""
+    slices, per = _slices(m, b)
+    tiles = -(-m // 64)
+    assert slices * per >= tiles > (slices - 1) * per
+    assert tiles * slices * b >= min(1024, tiles * tiles * b)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -187,8 +207,8 @@ def test_cuda_kernels_match_plain(cuda_device, variant, b, m, c):
     want, want_grad = _torch_value_and_grad(plain, f, masks, w,
                                             device=cuda_device)
     torch.cuda.synchronize()
-    assert {k: fn.launches[k] - before[k] for k in before} == {
-        "fwd": 1, "bwd_rows": 1, "bwd_cols": 1}
+    assert {k: fn.launches[k] - before[k] for k in before} == \
+        _expected_launches(b, m)
     for g, r in zip(got, want):
         np.testing.assert_allclose(g, r, rtol=2e-5, atol=1e-5)
     np.testing.assert_allclose(grad, want_grad, **GRAD)
@@ -217,3 +237,51 @@ def test_cuda_kernels_match_plain_at_unetw_shape(cuda_device, variant):
     np.testing.assert_allclose(
         grad, want_grad, rtol=GRAD["rtol"],
         atol=GRAD["atol"] * max(1.0, float(np.abs(want_grad).max())))
+
+
+_VARIANTS = {"row": (gram_row_stats, gram_row_stats_plain, 3),
+             "logit": (gram_logit_stats, gram_logit_stats_plain, 2),
+             "v2": (gram_supcon_v2_stats, gram_supcon_v2_stats_plain, 4)}
+
+
+def _variant_case(variant, b, m, seed):
+    f, pos, other, w = _fixture(m, 32, b=b, seed=seed)
+    fn, plain, n_out = _VARIANTS[variant]
+    masks = (pos,) if variant == "logit" else (pos, other)
+    w = (w * 2)[:n_out]
+    return fn, plain, f, masks, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["row", "logit", "v2"])
+@pytest.mark.parametrize("b,m", [(1, 6144), (2, 1000)])
+def test_cuda_fused_backward_matches_plain(cuda_device, variant, b, m):
+    """The fused backward of all three variants at the cr / unetw_3 row
+    count and at a ragged M, C = 32: values at rtol 2e-5 (absolute bars
+    scaled as in chip_smoke.py for the sums that cancel), gradients at
+    GRAD with the absolute bar scaled by the largest element."""
+    fn, plain, f, masks, w = _variant_case(variant, b, m, seed=6)
+    before = dict(fn.launches)
+    got, grad = _torch_value_and_grad(fn, f, masks, w, device=cuda_device)
+    want, want_grad = _torch_value_and_grad(plain, f, masks, w,
+                                            device=cuda_device)
+    torch.cuda.synchronize()
+    assert {k: fn.launches[k] - before[k] for k in before} == \
+        _expected_launches(b, m)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(
+            g, r, rtol=2e-5, atol=1e-5 * max(1.0, float(np.abs(r).max())))
+    np.testing.assert_allclose(
+        grad, want_grad, rtol=GRAD["rtol"],
+        atol=GRAD["atol"] * max(1.0, float(np.abs(want_grad).max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["row", "logit", "v2"])
+def test_cuda_backward_is_bit_identical(cuda_device, variant):
+    """Two backward launches on the same inputs give the same bits: the
+    slices' partials are summed in one fixed order, with no atomics."""
+    fn, _, f, masks, w = _variant_case(variant, 1, 6144, seed=7)
+    grads = [_torch_value_and_grad(fn, f, masks, w, device=cuda_device)[1]
+             for _ in range(2)]
+    assert np.array_equal(grads[0], grads[1])

@@ -97,12 +97,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The tensor-core kernel's tiles are 16 x 32 output pixels at F <= 32 and
+# 8 x 32 at F = 64 and 128; the cases put H and W off those tiles,
+# put z at the volume's borders (D = 1 and 2: every slice is a border),
+# and take C that is not a multiple of the mma's k depth of 8 (44, 4).
+CUDA_CASES = [((2, 5, 37, 45, 32), 32, True), ((1, 6, 64, 64, 32), 32, False),
+              ((1, 4, 30, 33, 16), 16, True), ((1, 5, 37, 45, 128), 128, True),
+              ((1, 3, 20, 24, 44), 64, False), ((1, 2, 21, 70, 32), 32, True),
+              ((2, 1, 13, 31, 128), 128, False), ((1, 3, 9, 17, 44), 64, True),
+              ((1, 2, 17, 40, 16), 16, False), ((1, 3, 11, 35, 4), 96, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,f,relu", [((2, 5, 37, 45, 32), 32, True),
-                                          ((1, 6, 64, 64, 32), 32, False),
-                                          ((1, 4, 30, 33, 16), 16, True),
-                                          ((1, 5, 37, 45, 128), 128, True),
-                                          ((1, 3, 20, 24, 44), 64, False)])
+@pytest.mark.parametrize("shape,f,relu", CUDA_CASES)
 def test_cuda_kernel_matches_plain(cuda_device, shape, f, relu):
     x, k = _inputs(shape, f, seed=3)
     xt = torch.from_numpy(x).to(cuda_device)
@@ -114,3 +121,19 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, f, relu):
     torch.cuda.synchronize()
     assert ztap_dilated_conv.launches == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,f", [((1, 4, 70, 90, 32), 32),
+                                     ((1, 3, 37, 45, 128), 128)])
+def test_cuda_kernel_is_bit_identical(cuda_device, shape, f):
+    """Two launches on the same inputs give the same bits: every output's
+    sum runs in one fixed order (no atomics, no split-K)."""
+    x, k = _inputs(shape, f, seed=4)
+    xt = torch.from_numpy(x).to(cuda_device)
+    kt = torch.from_numpy(k).to(cuda_device)
+    with torch.no_grad():
+        first = ztap_dilated_conv(xt, kt)
+        second = ztap_dilated_conv(xt, kt)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
