@@ -21,10 +21,15 @@ or (B, M). Gradients flow to ``feats`` only.
 * A CUDA tensor goes through ``GramRowStats`` / ``GramLogitStats`` /
   ``GramSupconV2Stats``, whose forward and backward launch the hand-written
   Hopper kernels of ``csrc/gram_stats.cu`` (built by nvcc at first use,
-  ``ops/_build.py``). Each launch adds one to the function's ``launches``
-  count: ``fwd``; ``bwd``, the fused backward (dF = (W + W^T).F in one
-  pass); and ``bwd_reduce``, the fixed-order sum of the backward's
-  partials when its column tiles are cut into slices (``_slices``).
+  ``ops/_build.py``), both with the sims product on the tensor cores in
+  3xTF32 (the forward by wgmma, the backward by mma.sync). Both cut their
+  column tiles into slices (``_slices``; the forward's blocks own
+  ``_fwd_rows`` rows). Each launch adds one to the function's ``launches``
+  count: ``fwd``, the forward (row statistics, V2's row max online, in
+  one sweep); ``fwd_reduce``, the fixed-order combination of its slices'
+  partials (``gram_fwd_reduce_plain`` is its plain version); ``bwd``, the
+  fused backward (dF = (W + W^T).F in one pass); and ``bwd_reduce``, the
+  fixed-order sum of the backward's partials.
 * A CPU tensor takes the plain version, ``gram_row_stats_plain`` /
   ``gram_logit_stats_plain`` / ``gram_supcon_v2_stats_plain``: dense torch
   in row blocks (matmul, exp, masked sums), each block under
@@ -46,8 +51,9 @@ from cet_pick_tpu_torch.ops._build import load_library
 
 _ROW, _LOGIT, _V2 = 0, 1, 2
 _MAX_C = 128  # widest C the kernels are instantiated for
-_TILE = 64  # rows of a kernel block's tile
-_TARGET_BLOCKS = 1024  # the backward's grid: a few waves of 132 SMs
+_TILE = 64  # rows and columns of a kernel's tile
+_TARGET_BLOCKS = 1024  # both passes' grids: a few waves of 132 SMs
+_LAUNCH_KINDS = ("fwd", "fwd_reduce", "bwd", "bwd_reduce")
 
 
 # ---------------------------------------------------------------------------
@@ -121,28 +127,54 @@ def gram_supcon_v2_stats_plain(feats, pos_mask, neg_mask, temp, block=1024):
     return _blocked(_v2_block, feats, (pos_mask, neg_mask), temp, block)
 
 
+def _ordered_sum(parts):
+    """The sum over the leading (slice) axis, in slice order."""
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out += p
+    return out
+
+
+def gram_fwd_reduce_plain(variant, part):
+    """Plain version of the forward's reduce kernel: the outputs of a
+    variant from ``part``, the (outputs, slices, B, M) partials of its
+    sliced forward (each slice's statistics over its own columns), in
+    slice order. Sums add up; for V2, (mx, pos_sims, neg_sims, tot), each
+    slice's tot sums exp(s - mx_k) against its own max mx_k, so it is taken
+    to the overall max first: tot = sum_k tot_k exp(mx_k - mx), an empty
+    slice (mx_k = -inf) adding 0."""
+    if variant != _V2:
+        return tuple(_ordered_sum(p) for p in part)
+    mx_k = part[0]
+    mx = mx_k.amax(0)
+    tot_k = torch.where(mx_k == float("-inf"), 0.0,
+                        part[3] * torch.exp(mx_k - mx))
+    return (mx, _ordered_sum(part[1]), _ordered_sum(part[2]),
+            _ordered_sum(tot_k))
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
 @functools.cache
 def _cuda_fns():
+    """The C functions of ``csrc/gram_stats.cu`` by name, typed."""
     lib = load_library("gram_stats")
-    fwd = lib.gram_stats_fwd_f32
-    fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                            ctypes.c_void_p])
-    fwd.restype = ctypes.c_int
-    bwd = lib.gram_stats_bwd_f32
-    bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
-                                            ctypes.c_void_p])
-    bwd.restype = ctypes.c_int
-    red = lib.gram_stats_bwd_reduce_f32
-    red.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    red.restype = ctypes.c_int
-    return fwd, bwd, red
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    tail = [ctypes.c_float, i32, ptr]  # inv_t, device, stream
+    argtypes = {
+        "gram_stats_fwd_f32": [i32] + [ptr] * 7 + [i32] * 5 + tail,
+        "gram_stats_fwd_reduce_f32": [i32] + [ptr] * 5 + [i32, i64, i32, ptr],
+        "gram_stats_bwd_f32": [i32] + [ptr] * 8 + [i32] * 5 + tail,
+        "gram_stats_bwd_reduce_f32": [ptr, ptr, i32, i64, i32, ptr],
+    }
+    fns = {}
+    for name, types in argtypes.items():
+        fns[name] = getattr(lib, name)
+        fns[name].argtypes = types
+        fns[name].restype = i32
+    return fns
 
 
 def _ptr(t):
@@ -163,26 +195,49 @@ def _public(variant):
             _V2: (gram_supcon_v2_stats, 4)}[variant]
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _fwd(variant, feats, masks, temp):
-    b, m, _ = feats.shape
+    """The forward kernel and, with its column tiles in slices, the
+    fixed-order reduce of the slices' partials."""
+    b, m, c = feats.shape
     public, n_out = _public(variant)
+    slices, per = _slices(m, b, _fwd_rows(c))
     outs = [torch.empty((b, m), device=feats.device, dtype=feats.dtype)
             for _ in range(n_out)]
+    part = None if slices == 1 else torch.empty(
+        (n_out, slices, b, m), device=feats.device, dtype=feats.dtype)
+    dest = outs if part is None else part.unbind(0)
     other = masks[1] if len(masks) > 1 else None
-    ptrs = [_ptr(o) for o in outs] + [None] * (4 - n_out)
-    _launch(public.__name__, public.launches, "fwd", _cuda_fns()[0],
-            variant, _ptr(feats), _ptr(masks[0]), _ptr(other), *ptrs,
-            b, m, feats.shape[2], 1.0 / temp, feats.device.index,
-            torch.cuda.current_stream(feats.device).cuda_stream)
+    unused = [None] * (4 - n_out)
+    _launch(public.__name__, public.launches, "fwd",
+            _cuda_fns()["gram_stats_fwd_f32"], variant, _ptr(feats),
+            _ptr(masks[0]), _ptr(other), *map(_ptr, dest), *unused, slices,
+            per, b, m, c, 1.0 / temp, feats.device.index, _stream(feats))
+    if part is not None:
+        _launch(public.__name__, public.launches, "fwd_reduce",
+                _cuda_fns()["gram_stats_fwd_reduce_f32"], variant,
+                _ptr(part), *map(_ptr, outs), *unused, slices, b * m,
+                feats.device.index, _stream(feats))
     return tuple(outs)
 
 
-def _slices(m, b):
-    """(slices, column tiles per slice) of the fused backward at M = m and
-    batch b: the fewest slices that give the grid ``_TARGET_BLOCKS`` blocks,
-    from m and b alone, so a shape always sums in the same order."""
+def _fwd_rows(c):
+    """Rows a forward block owns at C = c: 128 where the operands of two
+    64-row groups fit in shared memory, else 64 (``fwd_rows`` in
+    ``csrc/gram_stats.cu``)."""
+    return 2 * _TILE if c <= 96 else _TILE
+
+
+def _slices(m, b, rows=_TILE):
+    """(slices, column tiles per slice) at M = m and batch b, for blocks
+    of ``rows`` rows (the backward's 64; the forward's ``_fwd_rows``): the
+    fewest slices that give the grid ``_TARGET_BLOCKS`` blocks, from the
+    shape alone, so a shape always sums in the same order."""
     tiles = -(-m // _TILE)
-    want = min(tiles, -(-_TARGET_BLOCKS // (tiles * b)))
+    want = min(tiles, -(-_TARGET_BLOCKS // (-(-m // rows) * b)))
     per = -(-tiles // want)
     return -(-tiles // per), per
 
@@ -194,20 +249,18 @@ def _bwd_fused(variant, feats, masks, temp, cts, out, slices, per, mx=None):
     public, _ = _public(variant)
     other = masks[1] if len(masks) > 1 else None
     gptr = [_ptr(g) for g in cts] + [None] * (3 - len(cts))
-    _launch(public.__name__, public.launches, "bwd", _cuda_fns()[1],
-            variant, _ptr(feats), _ptr(masks[0]), _ptr(other), *gptr,
-            _ptr(mx), _ptr(out), slices, per, b, m, c, 1.0 / temp,
-            feats.device.index,
-            torch.cuda.current_stream(feats.device).cuda_stream)
+    _launch(public.__name__, public.launches, "bwd",
+            _cuda_fns()["gram_stats_bwd_f32"], variant, _ptr(feats),
+            _ptr(masks[0]), _ptr(other), *gptr, _ptr(mx), _ptr(out), slices,
+            per, b, m, c, 1.0 / temp, feats.device.index, _stream(feats))
 
 
 def _bwd_reduce(variant, part, grad):
     """grad = the sum of the slices' partials, in slice order."""
     public, _ = _public(variant)
-    _launch(public.__name__, public.launches, "bwd_reduce", _cuda_fns()[2],
-            _ptr(part), _ptr(grad), part.shape[0], grad.numel(),
-            grad.device.index,
-            torch.cuda.current_stream(grad.device).cuda_stream)
+    _launch(public.__name__, public.launches, "bwd_reduce",
+            _cuda_fns()["gram_stats_bwd_reduce_f32"], _ptr(part), _ptr(grad),
+            part.shape[0], grad.numel(), grad.device.index, _stream(grad))
 
 
 def _bwd(variant, feats, masks, temp, cts, mx=None):
@@ -339,7 +392,7 @@ def gram_row_stats(feats, pos_mask, other_mask, temp):
     return _unbatch(outs, squeeze)
 
 
-gram_row_stats.launches = {"fwd": 0, "bwd": 0, "bwd_reduce": 0}
+gram_row_stats.launches = dict.fromkeys(_LAUNCH_KINDS, 0)
 
 
 def gram_logit_stats(feats, pos_mask, temp):
@@ -353,7 +406,7 @@ def gram_logit_stats(feats, pos_mask, temp):
     return _unbatch(outs, squeeze)
 
 
-gram_logit_stats.launches = {"fwd": 0, "bwd": 0, "bwd_reduce": 0}
+gram_logit_stats.launches = dict.fromkeys(_LAUNCH_KINDS, 0)
 
 
 def gram_supcon_v2_stats(feats, pos_mask, neg_mask, temp):
@@ -368,4 +421,4 @@ def gram_supcon_v2_stats(feats, pos_mask, neg_mask, temp):
     return _unbatch(outs, squeeze)
 
 
-gram_supcon_v2_stats.launches = {"fwd": 0, "bwd": 0, "bwd_reduce": 0}
+gram_supcon_v2_stats.launches = dict.fromkeys(_LAUNCH_KINDS, 0)

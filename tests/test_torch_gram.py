@@ -12,9 +12,11 @@ to 6.7e-5 (relative) and its gradients up to 5.4e-4 (absolute) from the
 XLA path on this fixture, outside the bars, while the port stays within
 1.8e-6 and 1.3e-5 of the XLA path. On the CPU the wrappers take the plain
 version. The CUDA kernels
-are held against the plain version on the card (marked ``cuda``); the JAX
-package is imported inside the tests that use it, so that the ``cuda``
-tests also run where JAX is not installed:
+are held against the plain version on the card (marked ``cuda``): the
+forward alone at the bars above (the logit sums at atol 1e-5, the v2 sims
+sums at atol 1e-5 times their largest element), and both passes together;
+the JAX package is imported inside the tests that use it, so that the
+``cuda`` tests also run where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_gram.py
 """
@@ -24,7 +26,14 @@ import pytest
 import torch
 
 from cet_pick_tpu_torch.ops.gram import (
+    _LAUNCH_KINDS,
+    _LOGIT,
+    _ROW,
+    _TILE,
+    _V2,
+    _fwd_rows,
     _slices,
+    gram_fwd_reduce_plain,
     gram_logit_stats,
     gram_logit_stats_plain,
     gram_row_stats,
@@ -94,8 +103,8 @@ def test_row_stats_match_jax(m, c):
             np.testing.assert_allclose(g, np.asarray(r), **VAL)
         np.testing.assert_allclose(
             grad, np.asarray(jax.grad(loss(ref))(jnp.asarray(f))), **GRAD)
-    assert gram_row_stats.launches == {"fwd": 0, "bwd": 0,
-                                       "bwd_reduce": 0}  # CPU: no kernel
+    # CPU: no kernel
+    assert gram_row_stats.launches == dict.fromkeys(_LAUNCH_KINDS, 0)
 
 
 @pytest.mark.parametrize("c", [8, 32])
@@ -166,10 +175,13 @@ def test_wrapper_rejects_bad_input(bad, err):
         gram_row_stats(*bad(*_t(f, pos, other)), TEMP)
 
 
-def _expected_launches(b, m):
-    """One forward, one fused backward, and the backward's fixed-order
+def _expected_launches(b, m, c=32, backward=True):
+    """One forward and one fused backward, each with its fixed-order
     reduce when its column tiles are cut into more than one slice."""
-    return {"fwd": 1, "bwd": 1, "bwd_reduce": int(_slices(m, b)[0] > 1)}
+    return {"fwd": 1,
+            "fwd_reduce": int(_slices(m, b, _fwd_rows(c))[0] > 1),
+            "bwd": int(backward),
+            "bwd_reduce": int(backward and _slices(m, b)[0] > 1)}
 
 
 @pytest.mark.parametrize("m,b", [(24576, 1), (6144, 1), (6144, 2),
@@ -181,6 +193,95 @@ def test_backward_slices_cover_every_tile(m, b):
     tiles = -(-m // 64)
     assert slices * per >= tiles > (slices - 1) * per
     assert tiles * slices * b >= min(1024, tiles * tiles * b)
+
+
+def _tile_ranges(m, b, c):
+    """The column tiles of each slice of the forward's plan at (b, m, c)."""
+    slices, per = _slices(m, b, _fwd_rows(c))
+    tiles = -(-m // _TILE)
+    return [range(k * per, min(tiles, (k + 1) * per)) for k in range(slices)]
+
+
+@pytest.mark.parametrize("b,m,c", [(1, 24576, 32), (1, 6144, 128),
+                                   (2, 6144, 32), (2, 1000, 32), (1, 77, 44),
+                                   (1, 200000, 32)])
+def test_forward_slices_cover_every_tile(b, m, c):
+    """The forward's slices (the main shapes: the unet_4 semi step, unetw_3's,
+    the cr step's, the ragged batch; a ragged M; a long M) cover every
+    column tile exactly once, in order, with no empty slice, so that every
+    column enters one slice's partials and the reduce sees them in one
+    order; and the grid has about 1024 blocks where M allows."""
+    ranges = _tile_ranges(m, b, c)
+    tiles = -(-m // _TILE)
+    assert all(len(r) > 0 for r in ranges)
+    assert [j for r in ranges for j in r] == list(range(tiles))
+    assert (len(ranges) > 1) == (_expected_launches(b, m, c)["fwd_reduce"]
+                                 == 1)
+    row_blocks = -(-m // _fwd_rows(c)) * b
+    assert row_blocks * len(ranges) >= min(1024, row_blocks * tiles)
+
+
+def _slice_partials(variant, f, masks, m, b):
+    """(outputs, slices, B, M): each slice's statistics over its own
+    columns, as the sliced forward writes them, in float32 from one dense
+    sims matrix with the plain version's order of operations."""
+    f = torch.from_numpy(f)
+    masks = [torch.from_numpy(x) for x in masks]
+    sims = torch.matmul(f, f.transpose(-1, -2)) / TEMP
+    offdiag = ~torch.eye(m, dtype=torch.bool)
+    parts = []
+    for r in _tile_ranges(m, b, f.shape[-1]):
+        cols = slice(r[0] * _TILE, min(m, r[-1] * _TILE + _TILE))
+        s, off = sims[..., cols], offdiag[:, cols]
+        mk = [x[:, None, cols] for x in masks]
+        if variant == _V2:
+            s = torch.where(off, s, 0.0)
+            mx = s.amax(-1)
+            parts.append((mx, (s * mk[0]).sum(-1), (s * mk[1]).sum(-1),
+                          torch.exp(s - mx[..., None]).sum(-1)))
+            continue
+        logits = (s - 1.0 / TEMP) * off
+        e = torch.exp(logits)
+        parts.append(((e * mk[0]).sum(-1), (e * mk[1]).sum(-1), e.sum(-1))
+                     if variant == _ROW else
+                     ((logits * mk[0]).sum(-1), e.sum(-1)))
+    return torch.stack([torch.stack(p) for p in zip(*parts)])
+
+
+@pytest.mark.parametrize("variant", ["row", "logit", "v2"])
+def test_forward_reduce_plain_merges_slices(variant):
+    """``gram_fwd_reduce_plain``, the reduce kernel's plain version, gives
+    the plain forward from the slices' partials: sums in slice order, and
+    for V2 each slice's exp sum taken to the overall row max, on features
+    whose largest sims all arrive in the last slice (16 slices of one
+    column tile at (2, 1000))."""
+    b, m, c = 2, 1000, 32
+    code, fn = {"row": (_ROW, gram_row_stats_plain),
+                "logit": (_LOGIT, gram_logit_stats_plain),
+                "v2": (_V2, gram_supcon_v2_stats_plain)}[variant]
+    f, pos, other, _ = _fixture(m, c, b=b, seed=8)
+    masks = (pos,) if variant == "logit" else (pos, other)
+    if variant == "v2":
+        # raw features: the last slice's rows scaled by 5, so that every
+        # row's largest sim is with one of them
+        f[:, _tile_ranges(m, b, c)[-1][0] * _TILE:] *= np.float32(5.0)
+    part = _slice_partials(code, f, masks, m, b)
+    got = gram_fwd_reduce_plain(code, part)
+    want = fn(*_t(f, *masks), TEMP)
+    tols = [VAL] * len(want)
+    if variant == "logit":
+        tols[0] = dict(rtol=2e-5, atol=1e-5)
+    if variant == "v2":
+        for k in (1, 2):  # sims sums: atol scales with their largest
+            tols[k] = dict(rtol=2e-5, atol=1e-5 * float(want[k].abs().max()))
+        # every row's max is in the last slice, above the others' maxima,
+        # so the earlier slices' sums are rescaled, and that matters
+        assert (part[0][-1] == want[0]).all()
+        assert (part[0][:-1] < want[0]).all()
+        assert not torch.allclose(part[3].sum(0), want[3], rtol=1e-3)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    for g, w, tol in zip(got, want, tols):
+        torch.testing.assert_close(g, w, **tol)
 
 
 @pytest.fixture
@@ -208,7 +309,7 @@ def test_cuda_kernels_match_plain(cuda_device, variant, b, m, c):
                                             device=cuda_device)
     torch.cuda.synchronize()
     assert {k: fn.launches[k] - before[k] for k in before} == \
-        _expected_launches(b, m)
+        _expected_launches(b, m, c)
     for g, r in zip(got, want):
         np.testing.assert_allclose(g, r, rtol=2e-5, atol=1e-5)
     np.testing.assert_allclose(grad, want_grad, **GRAD)
@@ -285,3 +386,83 @@ def test_cuda_backward_is_bit_identical(cuda_device, variant):
     grads = [_torch_value_and_grad(fn, f, masks, w, device=cuda_device)[1]
              for _ in range(2)]
     assert np.array_equal(grads[0], grads[1])
+
+
+_SHAPES = [(1, 128, 32), (1, 200, 8), (2, 1000, 32), (1, 6144, 128),
+           (2, 6144, 32)]
+
+
+def _forward_case(variant, b, m, c, seed):
+    f, pos, other, _ = _fixture(m, c, b=b, seed=seed)
+    fn, plain, _ = _VARIANTS[variant]
+    return fn, plain, f, ((pos,) if variant == "logit" else (pos, other))
+
+
+def _assert_forward_close(variant, got, want):
+    """The forward's bars: values at rtol 2e-5, atol 1e-6; the logit sums
+    at atol 1e-5; the v2 sims sums at atol 1e-5 times their largest
+    element (M terms of size up to 1/T that cancel)."""
+    for k, (g, r) in enumerate(zip(got, want)):
+        atol = 1e-6
+        if variant == "logit" and k == 0:
+            atol = 1e-5
+        if variant == "v2" and k in (1, 2):
+            atol = 1e-5 * max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(g, r, rtol=2e-5, atol=atol)
+
+
+def _forward(fn, f, masks, device):
+    with torch.no_grad():
+        outs = fn(*_t(f, *masks, device=device), TEMP)
+    return [o.cpu().numpy() for o in outs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["row", "logit", "v2"])
+@pytest.mark.parametrize("b,m,c", _SHAPES)
+def test_cuda_forward_matches_plain(cuda_device, variant, b, m, c):
+    """The forward kernel (and its slices' reduce) alone against the plain
+    version, at the main paths' shapes and ragged ones."""
+    fn, plain, f, masks = _forward_case(variant, b, m, c, seed=9)
+    before = dict(fn.launches)
+    got = _forward(fn, f, masks, cuda_device)
+    torch.cuda.synchronize()
+    assert {k: fn.launches[k] - before[k] for k in before} == \
+        _expected_launches(b, m, c, backward=False)
+    _assert_forward_close(variant, got, _forward(plain, f, masks,
+                                                 cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_v2_forward_late_rising_max(cuda_device):
+    """V2 on raw features whose norms grow x10 along M, from 0.1 to 1: each
+    row's running max keeps rising into the last column tiles, so the
+    online max rescales the exp sum many times, within each slice and
+    across the slices of (2, 6144). The norms end at the unit features' of
+    the cr step, |s| <= 1/T: at norms up to 10 (|s| ~ 1e3) the sims' own
+    f32 rounding moves exp(s - max) past the bar, in the plain version
+    too. There, against float64, the plain version's tot is 4.8 times its
+    bar off and the kernel's 3.5; the plain version on the CPU and on the
+    card differ by 1.5 (chip_smoke.py's v2_raw_scale record, one H100)."""
+    b, m, c = 2, 6144, 32
+    f, pos, neg, _ = _fixture(m, c, b=b, seed=10)
+    f *= np.linspace(0.1, 1.0, m, dtype=np.float32)[:, None]
+    fn, plain, _ = _VARIANTS["v2"]
+    ft = torch.from_numpy(f).to(cuda_device)
+    sims = torch.matmul(ft, ft.transpose(1, 2))
+    sims.diagonal(dim1=1, dim2=2).zero_()  # V2's diagonal enters as 0
+    assert (sims.argmax(-1) >= m // 2).all()  # every row's max comes late
+    got = _forward(fn, f, (pos, neg), cuda_device)
+    want = _forward(plain, f, (pos, neg), cuda_device)
+    _assert_forward_close("v2", got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["row", "logit", "v2"])
+@pytest.mark.parametrize("b,m,c", [(1, 6144, 128), (2, 6144, 32)])
+def test_cuda_forward_is_bit_identical(cuda_device, variant, b, m, c):
+    """Two forward launches on the same inputs give the same bits: the
+    partials merge in one fixed order, with no atomics."""
+    fn, _, f, masks = _forward_case(variant, b, m, c, seed=11)
+    a, z = (_forward(fn, f, masks, cuda_device) for _ in range(2))
+    assert all(np.array_equal(x, y) for x, y in zip(a, z))

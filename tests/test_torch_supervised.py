@@ -35,6 +35,8 @@ import torch
 from cet_pick_tpu_torch.config import Config
 from cet_pick_tpu_torch.data.refine_dataset import RefineDataset
 from cet_pick_tpu_torch.ops.gram import (
+    _LAUNCH_KINDS,
+    _fwd_rows,
     _slices,
     gram_supcon_v2_stats,
     gram_supcon_v2_stats_plain,
@@ -135,8 +137,8 @@ def test_v2_stats_match_jax(m, c, scale):
 
     np.testing.assert_allclose(
         grad, np.asarray(jax.grad(loss)(jnp.asarray(f))), **GRAD)
-    assert gram_supcon_v2_stats.launches == {"fwd": 0, "bwd": 0,
-                                             "bwd_reduce": 0}  # CPU: no kernel
+    # CPU: no kernel
+    assert gram_supcon_v2_stats.launches == dict.fromkeys(_LAUNCH_KINDS, 0)
 
 
 def test_v2_batch_axis_and_blocks():
@@ -405,7 +407,8 @@ def test_cuda_v2_kernel_matches_plain(cuda_device, b, m, c):
                                       w, device=cuda_device)
     torch.cuda.synchronize()
     assert {k: gram_supcon_v2_stats.launches[k] - before[k]
-            for k in before} == {"fwd": 1, "bwd": 1,
-                                 "bwd_reduce": int(_slices(m, b)[0] > 1)}
+            for k in before} == {
+                "fwd": 1, "fwd_reduce": int(_slices(m, b, _fwd_rows(c))[0] > 1),
+                "bwd": 1, "bwd_reduce": int(_slices(m, b)[0] > 1)}
     _assert_stats_close(got, want, scaled_sums=True)
     _assert_grad_close(grad, want_grad)
