@@ -2,25 +2,39 @@
 
 Ported so far:
 
-  train   refinement training, ``--task semi`` (reference main.py semi):
-          paired crops around annotated particles, PU focal (or focal
-          under --pn) + debiased contrastive + flip consistency, Adam;
-          writes ``model_last.pth`` / ``model_best.pth`` + ``opt.json`` and a
-          log under ``<root_dir>/exp/semi/<exp_id>``.
-          Supervised training, ``--task cr --pn`` (focal + single-view
-          pixel supcon) and ``--task tomo --pn`` (focal + gathered-site
-          supcon), ``unet_N`` only; ``model_last.pth`` under
-          ``<root_dir>/exp/<task>/<exp_id>``.
-          Detectors: ``--arch unet_N`` and ``--arch unetw_N`` (output
-          stride 4, 128 channels)
-  test    refinement inference (reference test.py semi): an image list of
-          .rec/.mrc volumes -> ``{name}.txt`` picks (``x\\tz\\ty[\\tscore]``)
-          and ``{name}_hm.mrc`` heatmaps, from a ``.pth`` checkpoint
-          (default ``<root_dir>/exp/semi/<exp_id>/model_last.pth``)
+  train          refinement training, ``--task semi`` (reference main.py
+                 semi): paired crops around annotated particles, PU focal
+                 (or focal under --pn, PU-GE under --ge) + debiased
+                 contrastive + flip consistency, Adam; writes
+                 ``model_last.pth`` / ``model_best.pth`` + ``opt.json`` and
+                 a log under ``<root_dir>/exp/semi/<exp_id>``.
+                 ``--task semi3d``: the same step with the 3D detectors
+                 (``--arch res3d_N``, ``p3d_N``, ``res3dref_N``).
+                 ``--task semiclass --ge|--pn`` (reference main.py
+                 semiclass): stratified voxel crops with fill/unfill labels
+                 through the same step; ``model_last.pth`` (and
+                 ``model_<epoch>.pth`` under --save_all), validation focal
+                 every --val_intervals epochs. Plain PU is refused.
+                 Supervised training, ``--task cr --pn`` (focal +
+                 single-view pixel supcon) and ``--task tomo --pn`` (focal +
+                 gathered-site supcon), ``unet_N`` only; ``model_last.pth``
+                 under ``<root_dir>/exp/<task>/<exp_id>``.
+                 2D detectors: ``--arch unet_N`` and ``--arch unetw_N``
+                 (output stride 4, 128 channels)
+  test           refinement inference (reference test.py semi): an image
+                 list of .rec/.mrc volumes -> ``{name}.txt`` picks
+                 (``x\\tz\\ty[\\tscore]``) and ``{name}_hm.mrc`` heatmaps, from
+                 a ``.pth`` checkpoint (default
+                 ``<root_dir>/exp/<task>/<exp_id>/model_last.pth``); the 3D
+                 detectors run untiled
+  classify-test  semiclass inference (reference test_class.py): the tiled
+                 heatmap, a 30-voxel border zeroed, greedy ball NMS of
+                 diameter --nms above --out_thresh; defaults --ge, --nms 7,
+                 ``<root_dir>/exp/semiclass/<exp_id>/model_last.pth``
 
 ``--device {cuda,cpu}`` picks the device (default cuda; asking for cuda
-without one raises). Every other command of ``python -m cet_pick_tpu``, and
-``train --task semiclass|semi3d``, exits non-zero with "not yet ported".
+without one raises). Every other command of ``python -m cet_pick_tpu``
+exits non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -35,7 +49,7 @@ from cet_pick_tpu_torch.config import Config
 
 # the JAX package's other commands, in its order (cet_pick_tpu/__main__.py)
 NOT_PORTED = (
-    "classify-test", "watch", "explore", "moco", "classify",
+    "watch", "explore", "moco", "classify",
     "fewshot", "denoise", "embed", "scan", "scan-finetune", "plot2d",
     "phoenix", "to-coords", "sublabels", "visualize3d", "merge", "pr-curve",
     "remove-golds", "gen-files", "extract-spectrum", "match-spectrum",
@@ -51,16 +65,25 @@ def _parser(prog, defaults):
     return parser
 
 
+TRAIN_TASKS = ("semi", "semi3d", "semiclass", "tomo", "cr")
+
+
 def cmd_train(argv):
-    """``train --task semi|tomo|cr`` (cet_pick_tpu/__main__.py:84-136)."""
+    """``train --task semi|semi3d|semiclass|tomo|cr``
+    (cet_pick_tpu/__main__.py:84-136)."""
     args = _parser("cet_pick_tpu_torch train",
                    Config(task="semi", contrastive=True)).parse_args(argv)
     cfg = config_from_args(args)
-    if cfg.task not in ("semi", "tomo", "cr"):
+    if cfg.task not in TRAIN_TASKS:
         print(f"train --task {cfg.task!r} is not yet ported to "
-              f"cet_pick_tpu_torch (it trains --task semi, tomo and cr); run "
-              f"it with `python -m cet_pick_tpu train`")
+              f"cet_pick_tpu_torch (it trains --task "
+              f"{', '.join(TRAIN_TASKS)}); run it with "
+              f"`python -m cet_pick_tpu train`")
         return 2
+    if cfg.task == "semiclass":
+        from cet_pick_tpu_torch.train.semiclass import check_semiclass_config
+
+        check_semiclass_config(cfg)  # before any device set-up
     if cfg.profile_dir:
         raise NotImplementedError(
             "--profile_dir needs utils/profiling.py, which is not ported yet "
@@ -68,9 +91,11 @@ def cmd_train(argv):
     for f in (cfg.train_img_txt, cfg.train_coord_txt):
         if not os.path.exists(os.path.join(cfg.data_dir, f)):
             raise FileNotFoundError(os.path.join(cfg.data_dir, f))
+    from cet_pick_tpu_torch.data.classify_dataset import SemiClassDataset
     from cet_pick_tpu_torch.data.refine_dataset import RefineDataset
     from cet_pick_tpu_torch.infer.detector import set_float32_precision
     from cet_pick_tpu_torch.train.refine import prepare_refine, train_refine
+    from cet_pick_tpu_torch.train.semiclass import train_semiclass
     from cet_pick_tpu_torch.train.supervised import train_supervised
     from cet_pick_tpu_torch.utils.logger import Logger
 
@@ -78,14 +103,19 @@ def cmd_train(argv):
     logger = Logger(cfg)
     log = logger.log
     t0 = time.perf_counter()
-    train_ds = RefineDataset(cfg, "train")
+    dataset = SemiClassDataset if cfg.task == "semiclass" else RefineDataset
+    train_ds = dataset(cfg, "train")
     # the supervised loops have no validation (supervised.py:194-278)
-    val_ds = (RefineDataset(cfg, "val")
-              if cfg.task == "semi" and cfg.val_intervals > 0 else None)
+    val_ds = (dataset(cfg, "val") if cfg.task in ("semi", "semi3d",
+                                                  "semiclass")
+              and cfg.val_intervals > 0 else None)
     log(f"dataset build: {time.perf_counter() - t0:.3f}s "
         f"({len(train_ds)} training samples)")
     prepared = prepare_refine(cfg, log_fn=log, device=args.device)
-    if cfg.task == "semi":
+    if cfg.task == "semiclass":
+        train_semiclass(cfg, train_ds, val_dataset=val_ds, log_fn=log,
+                        prepared=prepared)
+    elif cfg.task in ("semi", "semi3d"):
         train_refine(cfg, train_ds, val_dataset=val_ds, log_fn=log,
                      prepared=prepared)
     else:
@@ -105,7 +135,21 @@ def cmd_test(argv):
     run_test(cfg, device=args.device)
 
 
-COMMANDS = {"train": cmd_train, "test": cmd_test}
+def cmd_classify_test(argv):
+    """Semiclass inference with greedy spherical NMS
+    (cet_pick_tpu/__main__.py:172-181)."""
+    args = _parser("cet_pick_tpu_torch classify-test",
+                   Config(task="semiclass", ge=True, nms=7)).parse_args(argv)
+    cfg = config_from_args(args)
+    if not cfg.load_model:
+        cfg.load_model = os.path.join(cfg.save_dir, "model_last.pth")
+    from cet_pick_tpu_torch.infer.classify import run_classify_test
+
+    run_classify_test(cfg, device=args.device)
+
+
+COMMANDS = {"train": cmd_train, "test": cmd_test,
+            "classify-test": cmd_classify_test}
 
 
 def main(argv=None):

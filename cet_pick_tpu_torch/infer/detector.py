@@ -86,8 +86,11 @@ class TomoDetector:
         halo = max(int(config.halo), Z_HALO)  # smaller would break exactness
         self.config = config
         self.model = create_detector(config)
+        # res3dref halves z as well: decoded z rescales like xy (:61-64);
+        # the 3D detectors run untiled (infer/tiled, detector.py:48-57)
+        self.z_ratio = getattr(self.model, "z_ratio", 1)
         if state_dict is None:
-            state_dict = load_checkpoint(config.load_model)
+            state_dict = load_checkpoint(config.load_model, arch=config.arch)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
         self.infer = TiledHeatmapInference(
@@ -129,6 +132,8 @@ class TomoDetector:
         (tomo_det.py:42-51)."""
         dets = np.asarray(dets, dtype=np.float32).copy()
         dets[:, :2] *= self.config.down_ratio
+        if self.z_ratio != 1:
+            dets[:, 2] *= self.z_ratio
         return group_dets_by_z(dets, z_dim_tot)
 
     def run(self, volume, name: str = "tomo", out_dir: Optional[str] = None,
@@ -157,7 +162,8 @@ class TomoDetector:
             if np.isnan(dets).any():  # keep the reference's NaN fail-fast
                 raise ValueError("Output contains NaN values")
         t_fetch = time.perf_counter()
-        z_groups = self.post_process(dets, z_dim_tot=hm_shape[0])
+        z_dim_tot = hm_shape[0] * self.z_ratio
+        z_groups = self.post_process(dets, z_dim_tot=z_dim_tot)
         t_post = time.perf_counter()
         ret = {
             "name": name,
@@ -169,7 +175,7 @@ class TomoDetector:
         }
         if out_dir is not None:
             self.save_detection(hm, z_groups, out_dir, name,
-                                hm_shape=hm_shape)
+                                hm_shape=hm_shape, z_dim_tot=z_dim_tot)
             ret["times"]["save"] = time.perf_counter() - t_post
         ret["times"]["tot"] = time.perf_counter() - t0
         return ret
@@ -177,15 +183,15 @@ class TomoDetector:
     # -- output writers ------------------------------------------------------
 
     def save_detection(self, hm: Optional[np.ndarray], z_groups: Dict,
-                       path: str, name: str, hm_shape=None):
+                       path: str, name: str, hm_shape=None, z_dim_tot=None):
         """Write ``{name}_hm.mrc`` + filtered ``{name}.txt`` (tomo_det.py:53-95)."""
         rows = (c for _, rs in z_groups.items() for c in rs)
         return write_detection_outputs(self.config, hm, rows, path, name,
-                                       hm_shape=hm_shape)
+                                       hm_shape=hm_shape, z_dim_tot=z_dim_tot)
 
 
 def write_detection_outputs(cfg, hm: Optional[np.ndarray], rows, path: str,
-                            name: str, hm_shape=None):
+                            name: str, hm_shape=None, z_dim_tot=None):
     """Reference-format detection writer (tomo_det.py:53-95), a copy of the
     JAX package's: ``{name}_hm.mrc`` with y/z axes swapped + ``{name}.txt``
     after the score / cutoff_z / 20-px-border filters and the fiber/spike
@@ -193,11 +199,16 @@ def write_detection_outputs(cfg, hm: Optional[np.ndarray], rows, path: str,
 
     rows: iterable of (x, y, z, score) with xy already at input resolution.
     hm may be None under --no-write_hm (pass hm_shape for the filters).
+    z_dim_tot: the input-resolution z extent for the cutoff_z filter, where
+    the rows' z was rescaled past the heatmap depth (res3dref decodes at
+    D/2); the heatmap depth by default (detector.py:211-231).
     """
     os.makedirs(path, exist_ok=True)
 
     max_z, max_y, max_x = hm.shape if hm is not None else hm_shape
     max_x, max_y = max_x * cfg.down_ratio, max_y * cfg.down_ratio
+    if z_dim_tot is not None:
+        max_z = z_dim_tot
     if hm is not None:
         if np.isnan(hm).any():
             raise ValueError("Output contains NaN values")

@@ -85,6 +85,12 @@ class TiledHeatmapInference:
                  tile_xy=None, tta: bool = False, xy_budget=None):
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        # a model with ``untiled`` set (the 3D detectors: GroupNorm spans
+        # the volume) runs one forward over the whole volume; the memory
+        # envelope refuses a volume that cannot fit instead of tiling it
+        self.untiled = getattr(model, "untiled", False)
+        if self.untiled:
+            tile_z, tile_xy = 10 ** 9, None
         self.tile_z = int(tile_z)
         self.halo = int(halo)
         # flip test-time augmentation: average the heatmap over the 4
@@ -99,8 +105,9 @@ class TiledHeatmapInference:
         self.xy_down = model.stem_stride
         self.bytes_per_voxel = float(
             getattr(model, "bytes_per_voxel", self.BYTES_PER_VOXEL))
-        self.xy_halo = xy_halo(model.n_blocks, self.xy_down)
-        self.xy_align = xy_align(model.n_blocks, self.xy_down)
+        if not self.untiled:
+            self.xy_halo = xy_halo(model.n_blocks, self.xy_down)
+            self.xy_align = xy_align(model.n_blocks, self.xy_down)
 
     def _dequant(self, t, lo, hi):
         """Affine dequantization in f32 on the device; float inputs pass
@@ -160,9 +167,9 @@ class TiledHeatmapInference:
     def _xy_plan(self, dim, tile):
         """Shifted-inward xy window plan, or None when one window covers the
         axis. Starts/cores stay on the pooling grid (see xy_halo/xy_align)."""
-        halo, align = self.xy_halo, self.xy_align
         if not tile:
             return None
+        halo, align = self.xy_halo, self.xy_align
         tile = max(tile - tile % align, align)
         win = tile + 2 * halo
         if dim <= win:
@@ -215,7 +222,19 @@ class TiledHeatmapInference:
 
     def _effective_xy(self, n_windows, win_d, h, w):
         """Merge the explicit ``--tile H W`` with the memory envelope: the
-        smaller tile wins per axis; an explicit 0 opts that axis out."""
+        smaller tile wins per axis; an explicit 0 opts that axis out. An
+        untiled detector raises where the envelope would tile."""
+        if self.untiled:
+            views = 4 if self.tta else 1
+            need = views * n_windows * win_d * h * w * self.bytes_per_voxel
+            if need > self.xy_budget:
+                raise MemoryError(
+                    f"a {win_d}x{h}x{w} volume needs about {need / 2**30:.1f} "
+                    f"GiB for this detector's untiled forward, over its "
+                    f"budget of {self.xy_budget / 2**30:.1f} GiB; the 3D "
+                    f"detectors are not tiled (GroupNorm spans the volume): "
+                    f"crop the volume")
+            return None
         auto = self._auto_xy(n_windows, win_d, h, w)
         if auto is None:
             return self.tile_xy

@@ -7,12 +7,18 @@ layout, so the reference's checkpoints and the JAX package's
 ``export-torch`` output load as they are. ``TomoPickNetW`` (``unetw_N``)
 has no reference layout (the JAX package converts none, convert.py:722);
 its keys are the port's module names, which its ``.pth`` files use too.
+The 3D families (convert.py:614-720): ``TomoRes3DRefNet`` (``res3dref_N``)
+takes the reference ``TomoRes3DNet`` names; ``TomoPickNet3D`` (``res3d_N``,
+``p3d_N``), which has no reference layout, the port's module names.
 Layout rules from flax:
 
   Conv2d  (kh, kw, in, out)         -> (out, in, kh, kw)
   Conv3d  (kd, kh, kw, in, out)     -> (out, in, kd, kh, kw)
   ConvTranspose2d (kh, kw, in, out) -> flip both spatial axes, then
                                        (in, out, kh, kw)
+  ConvTranspose3d (kd, kh, kw, in, out) -> flip all three, then
+                                       (in, out, kd, kh, kw)
+  GroupNorm params scale/bias       -> weight/bias
   BatchNorm params scale/bias       -> weight/bias
   BatchNorm batch_stats mean/var    -> running_mean/running_var
 """
@@ -34,11 +40,16 @@ def _get(tree, path):
 
 def state_dict_from_jax(params, batch_stats, n_blocks: int,
                         heads) -> Dict[str, torch.Tensor]:
-    """JAX ``TomoPickNet`` or ``TomoPickNetW`` variables (nested dicts of
-    arrays) -> the port's state dict, including the ``num_batches_tracked``
-    buffers, so that the port's model loads it with ``strict=True``. The
-    family is read from the stem: ``unetw_N``'s has ``embed`` and ``mix``
-    convs."""
+    """JAX detector variables (nested dicts of arrays) -> the port's state
+    dict, including the ``num_batches_tracked`` buffers, so that the port's
+    model loads it with ``strict=True``. The family is read from the
+    parameter tree: ``TomoRes3DRefNet`` has ``layer1_0``,
+    ``TomoPickNet3D`` has ``stem_gn``, and ``unetw_N``'s stem has ``embed``
+    and ``mix`` convs."""
+    if "layer1_0" in params:
+        return _res3dref_from_jax(params, heads)
+    if "stem_gn" in params:
+        return _pick3d_from_jax(params, n_blocks, heads)
     sd: Dict = {}
 
     def bn(dst, src):
@@ -104,7 +115,79 @@ def state_dict_from_jax(params, batch_stats, n_blocks: int,
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+def _conv3d_weight(params, src):
+    """flax Conv (kd, kh, kw, in, out) -> torch (out, in, kd, kh, kw)."""
+    return np.transpose(_get(params, src + ("kernel",)), (4, 3, 0, 1, 2))
+
+
+def _pick3d_from_jax(params, n_blocks, heads):
+    """JAX ``TomoPickNet3D`` (detector3d.py) -> the port's
+    ``models/detector3d.TomoPickNet3D``; GroupNorm scale/bias ->
+    weight/bias, no running statistics."""
+    sd: Dict = {"stem.weight": _conv3d_weight(params, ("stem",))}
+
+    def gn(dst, src):
+        sd[dst + ".weight"] = _get(params, src + ("scale",))
+        sd[dst + ".bias"] = _get(params, src + ("bias",))
+
+    gn("stem_gn", ("stem_gn",))
+    for i in range(n_blocks):
+        blk = (f"block{i}",)
+        for conv in ("conv1", "conv2", "proj"):
+            if conv in params[blk[0]]:
+                sd[f"blocks.{i}.{conv}.weight"] = _conv3d_weight(
+                    params, blk + (conv,))
+        gn(f"blocks.{i}.gn1", blk + ("gn1",))
+        gn(f"blocks.{i}.gn2", blk + ("gn2",))
+    sd["context.0.weight"] = _conv3d_weight(params, ("context0",))
+    sd["context.2.weight"] = _conv3d_weight(params, ("context1",))
+    for head in heads:
+        sd[head + ".weight"] = _conv3d_weight(params, (head,))
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _res3dref_from_jax(params, heads):
+    """JAX ``TomoRes3DRefNet`` -> the reference ``TomoRes3DNet`` names of
+    ``models/detector3d_ref`` (``res3d_flax_to_torch_state_dict``,
+    convert.py:659-692). A transpose conv's kernel is flipped on all three
+    spatial axes (``_deconv3d``, convert.py:614-619)."""
+    sd: Dict = {}
+
+    def conv(dst, src, bias=False):
+        sd[dst + ".weight"] = _conv3d_weight(params, src)
+        if bias:
+            sd[dst + ".bias"] = _get(params, src + ("bias",))
+
+    def deconv(dst, src):
+        w = _get(params, src + ("kernel",))[::-1, ::-1, ::-1]
+        sd[dst + ".weight"] = np.transpose(w, (3, 4, 0, 1, 2))
+
+    conv("conv1", ("conv1",))
+    for stage in (1, 2):
+        for b in range(2):
+            src = (f"layer{stage}_{b}",)
+            dst = f"layer{stage}.{b}"
+            conv(dst + ".conv1", src + ("conv1",))
+            conv(dst + ".conv2", src + ("conv2",))
+            if "downsample" in params[src[0]]:
+                conv(dst + ".downsample.0", src + ("downsample",))
+    conv("deconv_layers.0", ("deconv0_conv",))
+    deconv("deconv_layers.2", ("deconv0_up",))
+    conv("deconv_layers.4", ("deconv1_conv",))
+    deconv("deconv_layers.6", ("deconv1_up",))
+    conv("feature_head.0", ("feature_head",), bias=True)
+    for head in heads:
+        conv(head, (head,), bias=True)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def is_res3d_format(state_dict) -> bool:
+    """A reference ``TomoRes3DNet`` (semi3d) state dict (convert.py:713-716)."""
+    return any(k.endswith("deconv_layers.0.weight") and v.dim() == 5
+               for k, v in state_dict.items())
+
+
+def load_checkpoint(path: str, arch=None) -> Dict[str, torch.Tensor]:
     """A reference ``model_N.pth`` (``{'epoch', 'state_dict', ...}``) or the
     JAX package's ``export-torch`` output (same payload), or a bare state
     dict -> the port's state dict, on the CPU.
@@ -113,7 +196,10 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     ``num_batches_tracked`` buffers that the file lacks (``export-torch``
     writes none) are added as 0, so the result loads with ``strict=True``.
     JAX checkpoint directories (flax msgpack) are not read here: convert
-    them with ``python -m cet_pick_tpu export-torch``.
+    them with ``python -m cet_pick_tpu export-torch``. With ``arch``, a
+    reference res3d (semi3d) checkpoint is accepted for ``res3dref_N``
+    only, and ``res3dref_N`` accepts nothing else, as
+    ``load_reference_checkpoint`` does (convert.py:704-727).
     """
     if not path.endswith((".pth", ".pt")):
         raise ValueError(
@@ -122,7 +208,19 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
             f"export-torch --load_model DIR --out model.pth`, or pass a "
             f"reference model_N.pth")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return normalize_state_dict(ckpt.get("state_dict", ckpt))
+    sd = normalize_state_dict(ckpt.get("state_dict", ckpt))
+    if arch is not None:
+        res3d = is_res3d_format(sd)
+        if arch.startswith("res3dref") and not res3d:
+            raise ValueError(
+                f"{path} is not a reference res3d (TomoRes3DNet) checkpoint "
+                f"— arch res3dref_N expects one (resnet_3d_small.py)")
+        if res3d and not arch.startswith("res3dref"):
+            raise ValueError(
+                f"{path} is a reference res3d (semi3d) checkpoint; load it "
+                f"with --arch res3dref_18 (arch {arch!r} is not "
+                f"weight-compatible with it)")
+    return sd
 
 
 def normalize_state_dict(raw) -> Dict[str, torch.Tensor]:

@@ -125,7 +125,11 @@ class _Detector(nn.Module):
         hh, ww = x.shape[-2:]
         # (B*D, C, H', W') -> channels-last (B, D, H', W', C) for the head
         x = x.permute(0, 2, 3, 1).contiguous().reshape(b, d, hh, ww, -1)
-        x = self.feature_head(x)
+        return self._apply_heads(self.feature_head(x), active_heads)
+
+    def _apply_heads(self, x, active_heads=None):
+        """Channels-last (B, D, H, W, C) features -> {head: (B, D, H, W, K)};
+        'proj' L2-normalized over its channels."""
         out = {}
         for head in self.heads:
             if active_heads is not None and head not in active_heads:
@@ -215,15 +219,23 @@ def create_detector(config) -> _Detector:
     """Build the detector of a Config, mirroring the arch parsing of
     reference models/model.py:65-70 and JAX detector.py:337-373: 'unet_N'
     -> TomoPickNet(n_blocks=N), 'unetw_N' -> TomoPickNetW(n_blocks=N, 3
-    without a suffix)."""
+    without a suffix), 'res3dref_N' -> TomoRes3DRefNet, 'res3d_N' and
+    'p3d_N' -> TomoPickNet3D(n_blocks=N, 4 without a suffix)."""
     arch = config.arch
     if config.dtype != "float32":
         raise NotImplementedError(
             f"--dtype {config.dtype}: the port runs float32 only so far")
+    if arch.startswith("res3dref"):
+        from cet_pick_tpu_torch.models.detector3d_ref import TomoRes3DRefNet
+
+        return TomoRes3DRefNet(heads=dict(config.heads))
     if arch.startswith(("res3d", "p3d")):
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP Queue 1 item 7); the "
-            f"port runs unet_N and unetw_N")
+        from cet_pick_tpu_torch.models.detector3d import TomoPickNet3D
+
+        return TomoPickNet3D(
+            heads=dict(config.heads),
+            n_blocks=int(arch.split("_")[1]) if "_" in arch else 4,
+            head_conv=config.head_conv)
     if not arch.startswith("unet"):
         raise ValueError(f"unknown detector arch {arch!r}")
     n_blocks = int(arch.split("_")[1]) if "_" in arch else None

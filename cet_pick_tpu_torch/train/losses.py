@@ -247,6 +247,12 @@ def unbiased_con_loss(labels, out_hm, out_hm_cr, feats, feats_cr, temp=0.07,
     pos_feat_mean = pos_sum / torch.clamp(num_pos_total - 1, min=1.0)[:, None]
     rem_feat_mean = other_sum / torch.clamp(other_inds.sum(-1), min=1.0)[:, None]
     ng = _calc_g(pos_feat_mean, rem_feat_mean, tau_plus, temp)
+    # a sample without positives (a semiclass crop drawn off the particles)
+    # has pos_sum 0 on every row; its rows are masked out below, and a 1 in
+    # place of their 0 keeps log(0) * 0 from making the loss and its
+    # gradient NaN (JAX's XLA program gives 0 there)
+    pos_feat_mean = torch.where(pos_labels > 0, pos_feat_mean,
+                                torch.ones_like(pos_feat_mean))
     sup_rows = -torch.log(pos_feat_mean / (pos_feat_mean + ng))
     sup = _safe_div((sup_rows * pos_labels).sum(-1), num_pos_total)
 

@@ -1,8 +1,8 @@
 """Train state + checkpointing — port of ``cet_pick_tpu/train/state.py``.
 
 The state is the model, ``torch.optim.Adam`` with optax's defaults (betas
-0.9 / 0.999, eps 1e-8; state.py:59-90), and the ``step`` / ``epoch``
-counters. Checkpoints are ``.pth`` files in the reference's layout,
+0.9 / 0.999 as float32, eps 1e-8; state.py:59-90), and the ``step`` /
+``epoch`` counters. Checkpoints are ``.pth`` files in the reference's layout,
 ``{'epoch', 'state_dict', 'optimizer'}`` (reference models/model.py:195-296),
 written atomically with ``opt.json`` beside them (state.py:139-150). JAX's
 ``prepare_refine`` reads such a ``.pth`` (refine.py:270-286), so the JAX
@@ -21,9 +21,16 @@ import queue
 import sys
 import threading
 
+import numpy as np
 import torch
 
 from cet_pick_tpu_torch.models.convert import normalize_state_dict
+
+
+# optax keeps Adam's decay rates in float32, so its second moment decays
+# by 1 - float32(0.999) = 9.9998713e-4, not 1e-3: the same values here keep
+# the second moment to JAX's within rounding (tests/test_torch_trajectory.py)
+ADAM_BETAS = (float(np.float32(0.9)), float(np.float32(0.999)))
 
 
 class TrainState:
@@ -33,7 +40,7 @@ class TrainState:
     def __init__(self, model, lr: float):
         self.model = model
         self.optimizer = torch.optim.Adam(model.parameters(), lr=lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+                                          betas=ADAM_BETAS, eps=1e-8)
         self.step = 0
         self.epoch = 0
 

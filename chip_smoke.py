@@ -62,6 +62,31 @@ non-zero; nothing falls back to the CPU):
              z-tap kernel at C = F = 128): outputs checked, F1 > 0.7,
              per-stage times, the peak device bytes per fused input voxel,
              and its forward by stage; and its ``model_last.pth``'s F1
+11. semiclass ``train --task semiclass --ge`` (unet_4, batch 8,
+             contrastive: the row gram kernels at (8, 12288, 32)), 3
+             epochs, then ``--pn`` (the logit ones), 6 epochs as the JAX
+             package's semiclass F1 test, validated every epoch: losses
+             finite, the heatmap loss falling, each gram launch count equal
+             to the step count, the train-feature check; samples/s and the
+             host cost of the first batch (the stratified sampler's build)
+             against the next ones
+12. classify ``classify-test`` with each semiclass run's ``model_last.pth``
+             (bbox 8, nms 5, cutoff_z 2, out_thresh 0.15): the z-tap kernel
+             launched, the heatmap border zero, the greedy NMS's candidate
+             count, stage times, and the F1 against the planted centres the
+             decode can pick (outside the 60-px border band): > 0.6 for the
+             ``--pn`` model (the JAX package's bar,
+             tests/test_semiclass.py:128-131), reported for ``--ge``
+13. semi3d   ``train --task semi3d --arch res3d_2`` (the row gram; losses
+             finite, a later epoch below the first), then ``test`` with its
+             ``model_best.pth`` untiled (the z-tap kernel in the context
+             stage at (1, 256, 256, 256, 32)), F1 reported
+
+The model phase also runs ``res3d_2`` and ``res3dref_18``: the card's
+untiled forward against the CPU's, and one untiled forward of a
+256x512x512 volume with its device ms and peak memory. The kernels phase
+also times the z-tap kernel at res3d_2's shape, and the gram phase the
+row and logit kernels at the semiclass step's (8, 12288, 32).
 
 Each train / test run is a main-path run: every launch count is set to 0
 just before it and read just after. Then the nvidia-smi line, a
@@ -95,8 +120,10 @@ import torch.nn.functional as F
 
 from cet_pick_tpu_torch.__main__ import main as cli_main
 from cet_pick_tpu_torch.config import Config
+from cet_pick_tpu_torch.data.classify_dataset import SemiClassDataset
 from cet_pick_tpu_torch.data.refine_dataset import RefineDataset
 from cet_pick_tpu_torch.eval.metrics import evaluate_detections
+from cet_pick_tpu_torch.infer.classify import TomoClassDetector
 from cet_pick_tpu_torch.infer.detector import TomoDetector
 from cet_pick_tpu_torch.infer.tiled import TiledHeatmapInference
 from cet_pick_tpu_torch.io.loader import load_rec, preprocess_quantized
@@ -129,6 +156,9 @@ PEAKS = (("H100 PCIe", 51.2e12, 378e12, 2.0e12),
 VOLUME = (256, 512, 512)
 MAIN_ZTAP_SHAPE = (4, 70, 256, 256, 32)
 UNETW_ZTAP_SHAPE = (4, 70, 128, 128, 128)
+# res3d_2 runs the volume untiled: its context stage's z-tap conv sees the
+# whole (256, 256, 256) output grid at C = F = 32
+RES3D_ZTAP_SHAPE = (1, 256, 256, 256, 32)
 ZTAP_TOL = 1e-4  # f32 sums of 864 unit-scale terms, in another order
 MODEL_TOL = 1e-5  # heatmap probabilities, same weights, another batch size
 CPU_TOL = 5e-5  # heatmap probabilities, card vs CPU (the port's JAX bar)
@@ -142,6 +172,9 @@ GRAM_MAIN = (1, 24576, 32)
 GRAM_RAGGED = (2, 1000, 32)
 # unetw_3's semi step: 2 x 2 x 6 x 16 x 16 pixels of its C = 128 proj head
 GRAM_UNETW = (1, 6144, 128)
+# the semiclass step: batch 8, one 6 x 64 x 64 crop a sample in two views,
+# 2 x 6 x 32 x 32 pixels of the C = 32 proj head
+GRAM_SEMICLASS = (8, 12288, 32)
 # The cr step's single-view gram: batch 1 x 2 crops, each 6 x 32 x 32
 # pixels of the C = 32 proj head; and a ragged shape
 V2_MAIN = (2, 6144, 32)
@@ -163,6 +196,24 @@ BREAKDOWN_STEPS = 10
 CR_EPOCHS = 3
 TOMO_STEPS = 20
 UNETW_EPOCHS = 4
+# semiclass (unet_4, batch 8, contrastive): --num_iters 128 draws a
+# tomogram make 32 steps an epoch on the two volumes; bbox 8 as the JAX
+# package's semiclass tests (tests/test_semiclass.py:_cfg). The --pn run,
+# whose model classify-test gates, takes the 6 epochs of the JAX package's
+# semiclass F1 test (tests/test_semiclass.py:96): after 3 its heatmap
+# peaked at 0.34, and 5 voxels of the two volumes passed out_thresh 0.3
+# (F1 0.12; PERF.md)
+SEMICLASS_EPOCHS = {"ge": 3, "pn": 6}
+SEMICLASS_ITERS = 128
+SEMICLASS_BATCH = 8
+SEMICLASS_F1_GATE = 0.6  # tests/test_semiclass.py:128-131
+# classify-test's flags: those of tests/test_semiclass.py:_cfg, whose
+# out_thresh is 0.15 (its F1 test raises it to 0.3). Here the --pn model's
+# heatmap peaked at 0.34-0.53 from run to run, and at 0.3 the F1 ranged
+# over 0.12-0.90; at 0.2 and 0.1 it was 0.74-0.94 in every run (PERF.md)
+CLASSIFY = {"bbox": 8, "nms": 5, "cutoff_z": 2, "out_thresh": 0.15}
+CLASSIFY_ARGS = [a for k, v in CLASSIFY.items() for a in (f"--{k}", str(v))]
+SEMI3D_EPOCHS = 2
 F1_GATE = 0.7      # tests/test_e2e.py:86
 MATCH_RADIUS = 5   # tests/test_e2e.py:85
 # The train runs keep the gram kernel's inputs at the last step of each
@@ -288,13 +339,15 @@ def phase_build():
 
 def phase_kernels(peaks):
     """The z-tap kernel against its plain version and against a second
-    launch of itself (bit-identical); times at the two main path shapes.
-    Returns {"unet": record, "unetw": record}."""
+    launch of itself (bit-identical); times at the three main path shapes.
+    Returns {"unet": record, "unetw": record, "res3d": record}."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    timed = {MAIN_ZTAP_SHAPE: "unet", UNETW_ZTAP_SHAPE: "unetw"}
+    timed = {MAIN_ZTAP_SHAPE: "unet", UNETW_ZTAP_SHAPE: "unetw",
+             RES3D_ZTAP_SHAPE: "res3d"}
     cases = [(MAIN_ZTAP_SHAPE, 32, True), ((1,) + MAIN_ZTAP_SHAPE[1:], 32, False),
              ((2, 5, 37, 45, 32), 32, True), ((1, 4, 30, 33, 16), 16, True),
-             (UNETW_ZTAP_SHAPE, 128, True), ((1, 5, 37, 45, 128), 128, True)]
+             (UNETW_ZTAP_SHAPE, 128, True), ((1, 5, 37, 45, 128), 128, True),
+             (RES3D_ZTAP_SHAPE, 32, True)]
     main = {}
     for shape, f, relu in cases:
         c = shape[-1]
@@ -453,14 +506,16 @@ def phase_gram(peaks):
     """The gram kernels, forward and backward, against their plain
     versions, and the backward against a second run of itself
     (bit-identical): the row and logit kernels at the unet_4 semi step's
-    shape and a ragged batch, the row kernel at unetw_3's, and the v2
-    kernel at the cr step's and a ragged batch. Returns the main-shape
-    records by key ("row", "logit", "row_c128", "v2")."""
+    shape and a ragged batch, the row kernel at unetw_3's, both at the
+    semiclass step's batch of 8, and the v2 kernel at the cr step's and a
+    ragged batch. Returns the main-shape records by key ("row", "logit",
+    "row_c128", "row_semiclass", "logit_semiclass", "v2")."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     codes = {"row": G._ROW, "logit": G._LOGIT, "v2": G._V2}
     cases = [(GRAM_MAIN, ("row", "logit"), ""), (GRAM_RAGGED, ("row", "logit"), None),
-             (GRAM_UNETW, ("row",), "_c128"), (V2_MAIN, ("v2",), ""),
-             (V2_RAGGED, ("v2",), None)]
+             (GRAM_UNETW, ("row",), "_c128"),
+             (GRAM_SEMICLASS, ("row", "logit"), "_semiclass"),
+             (V2_MAIN, ("v2",), ""), (V2_RAGGED, ("v2",), None)]
     main = {}
     for shape, variants, suffix in cases:
         b, m, c = shape
@@ -632,6 +687,49 @@ def phase_model(arch):
     emit(rec)
     if err > CPU_TOL or not torch.isfinite(on_card).all():
         raise RuntimeError(f"card forward != CPU forward: {err}")
+
+
+def phase_model_3d(arch):
+    """A 3D detector (``res3d_2``, ``res3dref_18``) with seeded weights: the
+    card's untiled forward against the CPU's on a small volume, then one
+    untiled forward of a main-path volume on the card, its device ms and
+    peak memory (the bytes per input voxel that its ``bytes_per_voxel``
+    should cover) and its z-tap launches. Returns the record."""
+    torch.manual_seed(0)
+    cfg = Config(task="semi3d", arch=arch).finalize()
+    model = create_detector(cfg).to(DEVICE).eval()
+    cpu_model = create_detector(cfg).eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    small = np.random.default_rng(0).standard_normal(
+        (16, 64, 64)).astype(np.float32)
+    on_card = TiledHeatmapInference(model).fused(small).cpu()
+    on_cpu = TiledHeatmapInference(cpu_model).fused(small)
+    err = (on_card - on_cpu).abs().max().item()
+    rec = {"phase": "model", "arch": arch, "cpu_tol": CPU_TOL,
+           "card_vs_cpu_max_abs_err": err, "volume": list(VOLUME)}
+    if err > CPU_TOL or not torch.isfinite(on_card).all():
+        emit(rec)
+        raise RuntimeError(f"{arch}: card forward != CPU forward: {err}")
+    infer = TiledHeatmapInference(model)  # untiled: the model says so
+    vol = torch.randint(0, 256, VOLUME, dtype=torch.uint8, device=DEVICE)
+    infer.fused(vol, lo=0.0, hi=255.0)  # warm: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = _event()
+    hm = infer.fused(vol, lo=0.0, hi=255.0)
+    end = _event()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    rec.update(forward_ms=start.elapsed_time(end), hm_shape=list(hm.shape),
+               ztap_launches=ztap_dilated_conv.launches, peak_bytes=peak,
+               peak_bytes_per_input_voxel=peak / math.prod(VOLUME),
+               bytes_per_voxel_constant=model.bytes_per_voxel)
+    emit(rec)
+    if not torch.isfinite(hm).all():
+        raise RuntimeError(f"{arch}: the untiled forward is not finite")
+    return rec
 
 
 def expected_rows(hm, cfg):
@@ -916,6 +1014,161 @@ def _event():
     return e
 
 
+def semiclass_host(work):
+    """The host cost of a semiclass epoch's batches: the dataset build, the
+    first batch of 8 (it builds each tomogram's stratified sampler, which
+    enumerates every voxel of its 256^3 label volume) and the mean of the
+    next ten."""
+    cfg = Config(task="semiclass", ge=True, bbox=8, data_dir=work,
+                 order="zxy", num_iters=SEMICLASS_ITERS).finalize()
+    t0 = time.perf_counter()
+    ds = SemiClassDataset(cfg, "train")
+    build = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    ds.sample_batch(rng, range(SEMICLASS_BATCH))
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(1, 11):
+        ds.sample_batch(rng, range(i * SEMICLASS_BATCH,
+                                   (i + 1) * SEMICLASS_BATCH))
+    return {"dataset_build_s": build, "first_batch_s": first,
+            "batch_s": (time.perf_counter() - t0) / 10}
+
+
+def phase_train_semiclass(work, pn=False):
+    """``train --task semiclass`` (unet_4, batch 8, contrastive, bbox 8)
+    with ``--ge`` (the row gram kernels) or ``--pn`` (the logit ones),
+    validated every epoch (the z-tap kernel): losses finite, the heatmap
+    loss falling, each of the path's gram launch counters equal to the step
+    count, the kernel held to its plain version on the features of each
+    epoch's last step; samples/s. Returns (record, launches)."""
+    variant, fn_name = ("logit", "gram_logit_stats") if pn else \
+        ("row", "gram_row_stats")
+    phase = "train_semiclass_pn" if pn else "train_semiclass"
+    epochs = SEMICLASS_EPOCHS["pn" if pn else "ge"]
+    argv = ["train", "--task", "semiclass", "--pn" if pn else "--ge",
+            "--arch", "unet_4", "--exp_id", phase, "--order", "zxy",
+            "--data_dir", work, "--root_dir", work, "--device", DEVICE,
+            "--batch_size", str(SEMICLASS_BATCH), "--bbox", "8",
+            "--num_epochs", str(epochs), "--num_iters",
+            str(SEMICLASS_ITERS), "--val_intervals", "1"]
+    per_epoch = SEMICLASS_ITERS * 2 // SEMICLASS_BATCH
+    with captured_gram(train_losses, fn_name, per_epoch) as kept:
+        lines, launches, wall = run_cli(argv)
+    check_train_gram(phase, variant, kept)
+    steps = {}
+    means, rates = _epoch_lines(lines, steps)
+    n_steps = sum(steps.values())
+    hm_losses = [means[e]["hm_loss"] for e in sorted(means)
+                 if "hm_loss" in means[e]]
+    rec = {"phase": phase, "arch": "unet_4", "batch": SEMICLASS_BATCH,
+           "epochs": epochs, "steps": n_steps,
+           "launches": launches, "epoch_means": means,
+           "steady_samples_per_s": rates, "cli_wall_s": wall}
+    if not pn:
+        rec["host"] = semiclass_host(work)
+    emit(rec)
+    if not all(math.isfinite(v) for m in means.values() for v in m.values()) \
+            or len(hm_losses) < 2 or not hm_losses[-1] < hm_losses[0]:
+        raise RuntimeError(f"{phase}: hm_loss not finite and falling: "
+                           f"{hm_losses}")
+    gram = launches[fn_name]
+    if len(steps) != epochs or gram["fwd"] != n_steps \
+            or gram["bwd"] != n_steps or launches["ztap_dilated_conv"] == 0:
+        raise RuntimeError(f"{phase}: launches {launches} for {n_steps} "
+                           f"steps")
+    return rec, launches
+
+
+def phase_classify_test(work, names, planted, exp_id, phase, gate):
+    """``classify-test`` with a semiclass run's ``model_last.pth`` on the
+    two volumes (CLASSIFY_ARGS): the z-tap kernel launched, the heatmaps'
+    30-voxel xy border zero, the candidates the greedy NMS visits, stage
+    times a volume, and the F1 of the picks against the planted centres
+    that the decode can pick: outside the border band (60 input px) and
+    the cutoff_z planes. Gated at SEMICLASS_F1_GATE when ``gate``."""
+    argv = ["classify-test", "--arch", "unet_4", "--exp_id", exp_id,
+            "--order", "zxy", "--data_dir", work, "--root_dir", work,
+            "--with_score", "--device", DEVICE, *CLASSIFY_ARGS,
+            "--load_model", os.path.join(work, "exp", "semiclass", exp_id,
+                                         "model_last.pth")]
+    cfg = Config(task="semiclass", ge=True, **CLASSIFY).finalize()
+    lines, launches, wall = run_cli(argv)
+    if launches["ztap_dilated_conv"] == 0:
+        raise RuntimeError("classify-test never launched the z-tap kernel")
+    times = {}
+    for line in lines:
+        name, _, rest = line.partition(": ")
+        vals = rest.split()
+        times[name] = {k: float(v.rstrip("s"))
+                       for k, v in zip(vals[::2], vals[1::2])}
+    out_dir = os.path.join(work, "exp", "semiclass", exp_id, "output")
+    d, h, w = VOLUME
+    band = TomoClassDetector.BORDER * cfg.down_ratio
+    candidates, hm_max = {}, {}
+    for name in names:
+        hm = np.swapaxes(read_mrc(os.path.join(out_dir, f"{name}_hm.mrc")),
+                         1, 0)
+        b = TomoClassDetector.BORDER
+        if hm.shape != (d, h // 2, w // 2) or not np.isfinite(hm).all() \
+                or hm[:, :b].any() or hm[:, :, -b:].any():
+            raise RuntimeError(f"{name}_hm.mrc: bad heatmap {hm.shape}")
+        inner = hm[cfg.cutoff_z: d - cfg.cutoff_z + 1]
+        candidates[name] = int((inner > cfg.out_thresh).sum())
+        hm_max[name] = float(inner.max())
+    pickable = {n: [(x, y, z) for x, y, z in planted[n]
+                    if band <= x < w - band and band <= y < h - band
+                    and cfg.cutoff_z <= z <= d - cfg.cutoff_z]
+                for n in names}
+    ev = pick_f1(out_dir, names, pickable)
+    rec = {"phase": phase, "arch": "unet_4", "checkpoint": "model_last.pth",
+           "flags": CLASSIFY_ARGS, "launches": launches, "times_s": times,
+           "candidates": candidates, "hm_max": hm_max, "cli_wall_s": wall,
+           "planted_pickable": sum(len(v) for v in pickable.values()),
+           "planted": sum(len(v) for v in planted.values()),
+           "f1": ev["best_f1"], "f1_gate": SEMICLASS_F1_GATE if gate else None,
+           "best_row": ev["best_row"], "auprc": ev["auprc"],
+           "n_predictions": ev["n_predictions"]}
+    emit(rec)
+    if gate and not ev["best_f1"] > SEMICLASS_F1_GATE:
+        raise RuntimeError(f"classify-test F1 {ev['best_f1']:.3f} <= "
+                           f"{SEMICLASS_F1_GATE}")
+    return rec
+
+
+def phase_train_semi3d(work):
+    """``train --task semi3d --arch res3d_2`` (PU + contrastive, the row
+    gram at C = 32), validated every epoch (the untiled forward, the z-tap
+    kernel in its context stage): losses finite and a later epoch's mean
+    below the first's, as unetw_3's gate at the same lr and batch. Returns
+    (record, launches)."""
+    argv = ["train", "--task", "semi3d", "--arch", "res3d_2", "--exp_id",
+            "semi3d", "--order", "zxy", "--data_dir", work, "--root_dir",
+            work, "--device", DEVICE, "--num_epochs", str(SEMI3D_EPOCHS),
+            "--val_intervals", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    lines, launches, wall = run_cli(argv)
+    means, rates = _epoch_lines(lines)
+    losses = [means[e]["loss"] for e in sorted(means) if "loss" in means[e]]
+    rec = {"phase": "train_semi3d", "arch": "res3d_2",
+           "epochs": SEMI3D_EPOCHS, "launches": launches,
+           "epoch_means": means, "train_loss": losses,
+           "steady_samples_per_s": rates, "cli_wall_s": wall,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(rec)
+    if not all(math.isfinite(v) for m in means.values() for v in m.values()) \
+            or len(losses) < 2 or not min(losses[1:]) < losses[0]:
+        raise RuntimeError(f"semi3d train loss not finite and falling: "
+                           f"{losses}")
+    row = launches["gram_row_stats"]
+    if min(row["fwd"], row["bwd"]) == 0 \
+            or launches["ztap_dilated_conv"] == 0:
+        raise RuntimeError(f"semi3d train did not launch every kernel: "
+                           f"{launches}")
+    return rec, launches
+
+
 def phase_train_breakdown(work, arch="unet_4"):
     """One default train step by stage: device time from CUDA events at the
     model's forward boundaries and around the losses, backward and Adam
@@ -1032,16 +1285,17 @@ def pick_f1(out_dir, names, planted):
 
 
 def phase_main_path(work, names, planted, arch="unet_4", exp_id="default",
-                    phase="main_path", ckpt="model_best.pth", gate=True):
+                    phase="main_path", ckpt="model_best.pth", gate=True,
+                    task="semi"):
     """``test`` with a checkpoint of the trained run: by default its
     best-validation one, whose F1 is gated (at lr 1e-3 and batch 1 the last
     epoch's is a noisy draw, PERF.md); with ``gate`` False the F1 is only
     reported."""
-    argv = ["test", "--arch", arch, "--exp_id", exp_id, "--order", "zxy",
-            "--data_dir", work, "--root_dir", work, "--with_score",
-            "--device", DEVICE, "--load_model",
-            os.path.join(work, "exp", "semi", exp_id, ckpt)]
-    cfg = Config(task="semi", arch=arch).finalize()  # what `test` uses
+    argv = ["test", "--task", task, "--arch", arch, "--exp_id", exp_id,
+            "--order", "zxy", "--data_dir", work, "--root_dir", work,
+            "--with_score", "--device", DEVICE, "--load_model",
+            os.path.join(work, "exp", task, exp_id, ckpt)]
+    cfg = Config(task=task, arch=arch).finalize()  # what `test` uses
     dr = cfg.down_ratio
 
     torch.cuda.reset_peak_memory_stats()
@@ -1056,7 +1310,7 @@ def phase_main_path(work, names, planted, arch="unet_4", exp_id="default",
         vals = rest.split()
         times[name] = {k: float(v.rstrip("s"))
                        for k, v in zip(vals[::2], vals[1::2])}
-    out_dir = os.path.join(work, "exp", "semi", exp_id, "output")
+    out_dir = os.path.join(work, "exp", task, exp_id, "output")
     d, h, w = VOLUME
     n_picks = {}
     for name in names:
@@ -1095,7 +1349,8 @@ def phase_main_path(work, names, planted, arch="unet_4", exp_id="default",
            "n_targets": ev["n_targets"], "n_predictions": ev["n_predictions"],
            "peak_allocated_bytes": peak,
            "peak_bytes_per_fused_input_voxel":
-               peak / (MAIN_ZTAP_SHAPE[0] * MAIN_ZTAP_SHAPE[1] * h * w)}
+               peak / (MAIN_ZTAP_SHAPE[0] * MAIN_ZTAP_SHAPE[1] * h * w),
+           "peak_bytes_per_input_voxel": peak / voxels}
     emit(rec)
     if gate and not ev["best_f1"] > F1_GATE:
         raise RuntimeError(f"trained picks F1 {ev['best_f1']:.3f} <= "
@@ -1209,11 +1464,12 @@ def _gram_entries(name, rec, launches, fwd_line, bwd_line):
     ]
 
 
-def _ztap_entry(name, rec, launches, launches_in_train):
+def _ztap_entry(name, rec, launches, launches_in_train, **more_launches):
     return {"name": name, "route": "cuda",
             "source": "cet_pick_tpu_torch/csrc/ztap_conv.cu",
             "replaces": "cet_pick_tpu/ops/pallas_head.py:95",
             "launches": launches, "launches_in_train": launches_in_train,
+            **more_launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "bound_fp32_ms": rec["bound_fp32_ms"],
@@ -1267,6 +1523,8 @@ def main(argv=None):
     gram = phase_gram(peaks)
     for arch in ("unet_4", "unetw_3"):
         phase_model(arch)
+    for arch in ("res3d_2", "res3dref_18"):
+        phase_model_3d(arch)
     with tempfile.TemporaryDirectory() as work:
         names, planted = write_data(work)
         _, train_launches, pn_launches = phase_train(work)
@@ -1286,22 +1544,49 @@ def main(argv=None):
                         gate=False)
         phase_breakdown(os.path.join(work, "exp", "semi", "unetw",
                                      "model_best.pth"), "unetw_3")
+        _, sc_launches = phase_train_semiclass(work)
+        _, sc_pn_launches = phase_train_semiclass(work, pn=True)
+        cls_pn = phase_classify_test(work, names, planted,
+                                     "train_semiclass_pn", "classify_test",
+                                     gate=True)
+        cls_ge = phase_classify_test(work, names, planted, "train_semiclass",
+                                     "classify_test_ge", gate=False)
+        _, semi3d_train = phase_train_semi3d(work)
+        semi3d_rec = phase_main_path(work, names, planted, "res3d_2",
+                                     "semi3d", phase="semi3d_test",
+                                     ckpt="model_best.pth", gate=False,
+                                     task="semi3d")
     if CHECK_FAILURES:
         raise RuntimeError(f"failed: {CHECK_FAILURES}")
     kernels = [
         _ztap_entry("ztap_dilated_conv", ztap["unet"],
                     main_rec["launches"]["ztap_dilated_conv"],
-                    train_launches["ztap_dilated_conv"]),
+                    train_launches["ztap_dilated_conv"],
+                    launches_in_classify_test=[
+                        r["launches"]["ztap_dilated_conv"]
+                        for r in (cls_pn, cls_ge)],
+                    launches_in_semiclass_train=[
+                        r["ztap_dilated_conv"]
+                        for r in (sc_launches, sc_pn_launches)]),
         _ztap_entry("ztap_dilated_conv[C=F=128]", ztap["unetw"],
                     unetw_rec["launches"]["ztap_dilated_conv"],
                     unetw_train["ztap_dilated_conv"]),
+        _ztap_entry("ztap_dilated_conv[res3d_2]", ztap["res3d"],
+                    semi3d_rec["launches"]["ztap_dilated_conv"],
+                    semi3d_train["ztap_dilated_conv"]),
     ]
     kernels += _gram_entries("gram_row_stats", gram["row"],
                              train_launches["gram_row_stats"], 92, 109)
     kernels += _gram_entries("gram_row_stats[C=128]", gram["row_c128"],
                              unetw_train["gram_row_stats"], 92, 109)
+    kernels += _gram_entries("gram_row_stats[B=8,semiclass]",
+                             gram["row_semiclass"],
+                             sc_launches["gram_row_stats"], 92, 109)
     kernels += _gram_entries("gram_logit_stats", gram["logit"],
                              pn_launches["gram_logit_stats"], 244, 260)
+    kernels += _gram_entries("gram_logit_stats[B=8,semiclass]",
+                             gram["logit_semiclass"],
+                             sc_pn_launches["gram_logit_stats"], 244, 260)
     kernels += _gram_entries("gram_supcon_v2_stats", gram["v2"],
                              cr_launches["gram_supcon_v2_stats"], 366, 387)
     for k in kernels:

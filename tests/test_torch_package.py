@@ -10,7 +10,7 @@ import sys
 import pytest
 import torch
 
-from cet_pick_tpu_torch.__main__ import NOT_PORTED, main
+from cet_pick_tpu_torch.__main__ import COMMANDS, NOT_PORTED, main
 from cet_pick_tpu_torch.config import Config
 from cet_pick_tpu_torch.infer.detector import TomoDetector
 
@@ -66,11 +66,12 @@ def test_cuda_device_without_cuda_raises():
 
 @pytest.mark.parametrize("cmd", ["train", "export-torch", "watch"])
 def test_unported_commands_exit_nonzero(cmd, capsys):
-    """Unported commands, and ``train`` for the tasks other than semi, tomo
-    and cr."""
+    """Unported commands, and ``train`` for the tasks other than semi,
+    semi3d, semiclass, tomo and cr; ``classify-test`` is ported."""
+    assert "classify-test" not in NOT_PORTED and "classify-test" in COMMANDS
     if cmd == "train":
         assert cmd not in NOT_PORTED
-        for task in ("semiclass", "semi3d"):
+        for task in ("simsiam", "denoise"):
             assert main([cmd, "--task", task]) == 2
     else:
         assert cmd in NOT_PORTED
