@@ -31,6 +31,19 @@ Ported so far:
                  heatmap, a 30-voxel border zeroed, greedy ball NMS of
                  diameter --nms above --out_thresh; defaults --ge, --nms 7,
                  ``<root_dir>/exp/semiclass/<exp_id>/model_last.pth``
+  explore        exploration training (reference simsiam_main.py): SimSiam
+                 on DoG-mined patches, ``--task simsiam2d3d --arch
+                 simsiam2d3d_18`` (default: a tilt-sum and a z-slice patch
+                 per candidate; the image list's ``tilt_path`` /
+                 ``angle_path`` columns, tilts read as zxy and recs as xzy)
+                 or ``--task simsiam3d --arch simsiam2d_18`` (z-slice
+                 patches only, ``--order``); plain SGD, cosine LR; writes
+                 ``model_last.pth`` under ``<root_dir>/exp/<task>/<exp_id>``
+  embed          embedding extraction (reference simsiam_test_hm_2d3d.py):
+                 ``all_output_info.npz`` (proj, pred, name, coords, subvol[,
+                 subvols_2d]) from ``--load_model`` (default
+                 ``model_last.pth`` of the experiment; a reference
+                 exploration ``.pth`` loads too)
 
 ``--device {cuda,cpu}`` picks the device (default cuda; asking for cuda
 without one raises). Every other command of ``python -m cet_pick_tpu``
@@ -49,8 +62,8 @@ from cet_pick_tpu_torch.config import Config
 
 # the JAX package's other commands, in its order (cet_pick_tpu/__main__.py)
 NOT_PORTED = (
-    "watch", "explore", "moco", "classify",
-    "fewshot", "denoise", "embed", "scan", "scan-finetune", "plot2d",
+    "watch", "moco", "classify",
+    "fewshot", "denoise", "scan", "scan-finetune", "plot2d",
     "phoenix", "to-coords", "sublabels", "visualize3d", "merge", "pr-curve",
     "remove-golds", "gen-files", "extract-spectrum", "match-spectrum",
     "backproject", "export-torch", "import-torch", "flags", "doctor",
@@ -148,8 +161,94 @@ def cmd_classify_test(argv):
     run_classify_test(cfg, device=args.device)
 
 
+EXPLORE_TASKS = ("simsiam2d3d", "simsiam3d")
+
+
+def _explore_config(prog, defaults, argv):
+    """(args, config) of ``explore`` / ``embed``; None where the task or the
+    arch asks for what is not ported yet (the 3D-subvolume mode, MoCo)."""
+    from cet_pick_tpu_torch.models.simsiam import explore_mode
+
+    args = _parser(prog, defaults).parse_args(argv)
+    cfg = config_from_args(args)
+    if cfg.task not in EXPLORE_TASKS or explore_mode(cfg) == "vol":
+        print(f"{prog.split()[-1]} --task {cfg.task} --arch {cfg.arch} is "
+              f"not yet ported to cet_pick_tpu_torch (it runs --task "
+              f"simsiam2d3d --arch simsiam2d3d_18 and --task simsiam3d "
+              f"--arch simsiam2d_18); run it with `python -m cet_pick_tpu`")
+        return args, None
+    return args, cfg
+
+
+def cmd_explore(argv):
+    """SimSiam exploration training (cet_pick_tpu/__main__.py:184-206)."""
+    args, cfg = _explore_config(
+        "cet_pick_tpu_torch explore",
+        Config(task="simsiam2d3d", arch="simsiam2d3d_18", bbox=36,
+               batch_size=256, lr=1e-3, cosine=True, num_epochs=20), argv)
+    if cfg is None:
+        return 2
+    if not os.path.exists(os.path.join(cfg.data_dir, cfg.train_img_txt)):
+        raise FileNotFoundError(os.path.join(cfg.data_dir, cfg.train_img_txt))
+    from cet_pick_tpu_torch.data.explore_dataset import ExploreDataset
+    from cet_pick_tpu_torch.infer.detector import set_float32_precision
+    from cet_pick_tpu_torch.train.explore import prepare_explore, train_explore
+    from cet_pick_tpu_torch.utils.logger import Logger
+
+    set_float32_precision(cfg.dtype)
+    prepared = prepare_explore(cfg, device=args.device)  # fails fast
+    logger = Logger(cfg)
+    t0 = time.perf_counter()
+    dataset = ExploreDataset(cfg, "train", device=prepared["device"])
+    logger.log(f"dataset build: {time.perf_counter() - t0:.3f}s "
+               f"({len(dataset)} training samples)")
+    train_explore(cfg, dataset, prepared, log_fn=logger.log)
+    logger.close()
+
+
+def cmd_embed(argv):
+    """Embedding extraction to ``all_output_info.npz``
+    (cet_pick_tpu/__main__.py:232-297)."""
+    args, cfg = _explore_config(
+        "cet_pick_tpu_torch embed",
+        Config(task="simsiam2d3d", arch="simsiam2d3d_18", bbox=36), argv)
+    if cfg is None:
+        return 2
+    if not cfg.load_model:
+        cfg.load_model = os.path.join(cfg.save_dir, "model_last.pth")
+    if not os.path.exists(os.path.join(cfg.data_dir, cfg.test_img_txt)):
+        raise FileNotFoundError(os.path.join(cfg.data_dir, cfg.test_img_txt))
+    from cet_pick_tpu_torch.data.explore_dataset import ExploreDataset
+    from cet_pick_tpu_torch.infer.detector import (
+        resolve_device,
+        set_float32_precision,
+    )
+    from cet_pick_tpu_torch.infer.embed import (
+        extract_embeddings,
+        save_embeddings,
+    )
+    from cet_pick_tpu_torch.models.convert import load_simsiam_checkpoint
+    from cet_pick_tpu_torch.models.simsiam import create_simsiam
+
+    set_float32_precision(cfg.dtype)
+    device = resolve_device(args.device)
+    model = create_simsiam(cfg)
+    model.load_state_dict(load_simsiam_checkpoint(cfg.load_model),
+                          strict=True)
+    model.to(device)
+    t0 = time.perf_counter()
+    dataset = ExploreDataset(cfg, "test", device=device)
+    t1 = time.perf_counter()
+    result = extract_embeddings(model, dataset, device=device)
+    t2 = time.perf_counter()
+    print(f"embed: dataset build {t1 - t0:.3f}s, forward {t2 - t1:.3f}s "
+          f"for {len(result['proj'])} patches")
+    print(f"saved {save_embeddings(cfg, result)}")
+
+
 COMMANDS = {"train": cmd_train, "test": cmd_test,
-            "classify-test": cmd_classify_test}
+            "classify-test": cmd_classify_test, "explore": cmd_explore,
+            "embed": cmd_embed}
 
 
 def main(argv=None):

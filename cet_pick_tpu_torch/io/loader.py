@@ -1,5 +1,5 @@
-"""Tomogram loading + uint8 preprocessing — a copy of
-``cet_pick_tpu/io/loader.py:26-260``.
+"""Tomogram / tilt-series loading + preprocessing — a copy of
+``cet_pick_tpu/io/loader.py:26-290``.
 
 The numpy code is copied as it is, so that ``preprocess_quantized`` returns
 byte-identical ``(u8, lo, hi)``. Semantics of reference
@@ -8,11 +8,15 @@ cet_pick/utils/loader.py:16-121:
 * ``quantize``       — loader.py:16-25  (linear [mi,ma] -> uint8 with clipping)
 * ``load_rec``       — loader.py:27-88  (axis reorder to (z, x, y), optional
                        z-compression by pairwise max, global standardization)
+* ``preprocess``     — loader.py:90-121 (optional gaussian denoise, z-score,
+                       quantize, rescale to [0, 1]; tilt series per slice)
 * ``preprocess_quantized`` — the tomogram path of loader.py:90-121, keeping
                        the uint8 representation for dequantization on the
                        device
 * ``QuantizedTomo`` / ``load_tomos_quantized_from_list`` — uint8-resident
                        training volumes whose crops dequantize bit-identically
+* list loaders       — loader.py:134-173 (float tomograms, tilt stacks with
+                       their ``.tlt`` angles; the exploration datasets)
 
 All of this is host-side numpy: it runs once per tomogram.
 """
@@ -131,6 +135,44 @@ def load_rec(path, order="xyz", compress=False, is_tilt=False):
     return vol
 
 
+def _minmax01(x, axis=None, inplace=False):
+    mn = x.min(axis=axis, keepdims=axis is not None)
+    mx = x.max(axis=axis, keepdims=axis is not None)
+    rng = np.where(mx == mn, 1.0, mx - mn)  # constant input -> zeros
+    if inplace:
+        x -= mn
+        x /= rng
+        return x
+    return (x - mn) / rng
+
+
+def preprocess(vol, denoise=0, is_tilt=False):
+    """Standardize -> quantize to uint8 -> rescale to [0, 1] (loader.py:90-121).
+
+    Tomograms: global statistics; ``denoise`` > 0 applies a 3D gaussian filter
+    first and widens the quantization window to [-3, 3].
+    Tilt series: per-slice statistics and per-slice min-max (the reference
+    loops slices with cv2.normalize; equivalent to per-slice min-max to [0,1]).
+    """
+    # an owned float64 copy, so every later pass runs in place in the same
+    # op order as JAX's
+    vol = np.array(vol, dtype=np.float64)
+    if is_tilt:
+        if denoise > 0:
+            vol = np.stack([gaussian_filter(s, sigma=denoise) for s in vol])
+        vol = _standardize(vol, axis=(1, 2), inplace=True)
+        vol = quantize(vol, inplace=True).astype(np.float64)
+        return _minmax01(vol, axis=(1, 2), inplace=True)
+    if denoise > 0:
+        vol = gaussian_filter(vol, sigma=denoise)
+        vol = _standardize(vol, inplace=True)
+        vol = quantize(vol, mi=-3, ma=3, inplace=True).astype(np.float64)
+    else:
+        vol = _standardize(vol, inplace=True)
+        vol = quantize(vol, inplace=True).astype(np.float64)
+    return _minmax01(vol, inplace=True)
+
+
 def preprocess_quantized(vol, denoise=0):
     """Tomogram preprocessing that keeps the uint8 representation.
 
@@ -207,3 +249,41 @@ def load_tomos_quantized_from_list(names, paths, order="xzy", compress=False,
         q, lo, hi = preprocess_quantized(im, denoise=denoise)
         images[name] = QuantizedTomo(q, lo, hi)
     return images
+
+
+def load_tlt(path):
+    """Read a .tlt tilt-angle file -> (n, 1) float array (loader.py:263-265)."""
+    return np.loadtxt(path, ndmin=1).reshape(-1, 1)
+
+
+def load_tomos_from_list(names, paths, order="xzy", compress=False,
+                         denoise=0, tilt=False):
+    """Load + preprocess float32 tomograms keyed by name (loader.py:268-274)."""
+    images = {}
+    for name, path in zip(names, paths):
+        im = load_rec(path, order=order, compress=compress, is_tilt=tilt)
+        images[name] = preprocess(im, denoise=denoise,
+                                  is_tilt=tilt).astype(np.float32)
+    return images
+
+
+def load_tomo_all_and_angles_from_list(
+    names, tilt_paths, rec_paths, angle_paths,
+    order_tilt="zxy", order_rec="xzy", compress=False, denoise=0,
+):
+    """Matched tilt stacks + reconstructions + angles (loader.py:277-290).
+    The axis orders are fixed, not ``--order``: the 2d3d exploration loader
+    reads tilts as ``zxy`` and reconstructions as ``xzy``."""
+    tilt_ims, rec_ims, angles = {}, {}, {}
+    for name, tpath, rpath, apath in zip(names, tilt_paths, rec_paths,
+                                         angle_paths):
+        tilt_im = load_rec(tpath, order=order_tilt, compress=False,
+                           is_tilt=True)
+        rec_im = load_rec(rpath, order=order_rec, compress=compress,
+                          is_tilt=False)
+        tilt_ims[name] = preprocess(tilt_im, denoise=denoise,
+                                    is_tilt=True).astype(np.float32)
+        rec_ims[name] = preprocess(rec_im, denoise=denoise,
+                                   is_tilt=False).astype(np.float32)
+        angles[name] = load_tlt(apath)
+    return tilt_ims, rec_ims, angles

@@ -9,7 +9,9 @@ has no reference layout (the JAX package converts none, convert.py:722);
 its keys are the port's module names, which its ``.pth`` files use too.
 The 3D families (convert.py:614-720): ``TomoRes3DRefNet`` (``res3dref_N``)
 takes the reference ``TomoRes3DNet`` names; ``TomoPickNet3D`` (``res3d_N``,
-``p3d_N``), which has no reference layout, the port's module names.
+``p3d_N``), which has no reference layout, the port's module names. The
+exploration ``SimSiamEncoder`` takes the reference ``TomoResClassifier2D3D``
+/ ``2D`` names (convert.py:107-153, 482-539).
 Layout rules from flax:
 
   Conv2d  (kh, kw, in, out)         -> (out, in, kh, kw)
@@ -220,6 +222,78 @@ def load_checkpoint(path: str, arch=None) -> Dict[str, torch.Tensor]:
                 f"{path} is a reference res3d (semi3d) checkpoint; load it "
                 f"with --arch res3dref_18 (arch {arch!r} is not "
                 f"weight-compatible with it)")
+    return sd
+
+
+def simsiam_state_dict_from_jax(params, batch_stats
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX ``SimSiamEncoder`` variables (2d3d / 2d) -> the port's state dict
+    in the reference layout, ``num_batches_tracked`` included, so that
+    ``models/simsiam.SimSiamEncoder`` loads it with ``strict=True``; the
+    mapping of ``simsiam_flax_to_torch_state_dict`` (convert.py:482-539)."""
+    sd: Dict = {}
+
+    def bn(dst, src, affine=True):
+        if affine:
+            sd[dst + ".weight"] = _get(params, src + ("scale",))
+            sd[dst + ".bias"] = _get(params, src + ("bias",))
+        sd[dst + ".running_mean"] = _get(batch_stats, src + ("mean",))
+        sd[dst + ".running_var"] = _get(batch_stats, src + ("var",))
+        sd[dst + ".num_batches_tracked"] = np.array(0, np.int64)
+
+    def conv(dst, src):
+        sd[dst + ".weight"] = np.transpose(_get(params, src + ("kernel",)),
+                                           (3, 2, 0, 1))
+
+    def dense(dst, src, bias=True):
+        sd[dst + ".weight"] = np.transpose(_get(params, src + ("kernel",)),
+                                           (1, 0))
+        if bias:
+            sd[dst + ".bias"] = _get(params, src + ("bias",))
+
+    conv("conv1", ("trunk", "conv1"))
+    bn("bn1", ("trunk", "bn1"))
+    for stage in range(3):
+        for b in range(2):
+            dst = f"layer{stage + 1}.{b}"
+            src = ("trunk", f"layer{stage + 1}_{b}")
+            conv(dst + ".conv1", src + ("conv1",))
+            bn(dst + ".bn1", src + ("bn1",))
+            conv(dst + ".conv2", src + ("conv2",))
+            bn(dst + ".bn2", src + ("bn2",))
+            if "downsample_conv" in params["trunk"][f"layer{stage + 1}_{b}"]:
+                conv(dst + ".downsample.0", src + ("downsample_conv",))
+                bn(dst + ".downsample.1", src + ("downsample_bn",))
+    dense("fc", ("fc",))
+    dense("proj.0", ("proj", "fc0"), bias=False)
+    bn("proj.1", ("proj", "bn0"))
+    dense("proj.3", ("proj", "fc1"), bias=False)
+    bn("proj.4", ("proj", "bn1"))
+    dense("proj.6", ("proj", "fc2"), bias=False)
+    bn("proj.7", ("proj", "bn2"), affine=False)
+    dense("pred.0", ("pred", "fc0"), bias=False)
+    bn("pred.1", ("pred", "bn0"))
+    dense("pred.3", ("pred", "fc1"))
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def load_simsiam_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference exploration ``.pth`` (``TomoResClassifier2D3D`` / ``2D``,
+    the inverse of JAX's ``simsiam_state_dict_to_flax``, convert.py:107-153)
+    or the port's own ``model_last.pth`` -> the state dict for
+    ``SimSiamEncoder``'s strict load, ``module.`` prefixes stripped. The
+    reference's MoCo / SCAN wrappers and the torchvision ImageNet trunk
+    init (``load_simsiam_torch``, convert.py:348-404) are not ported yet."""
+    if not path.endswith((".pth", ".pt")):
+        raise ValueError(
+            f"--load_model {path!r}: the port loads .pth checkpoints only")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = normalize_state_dict(ckpt.get("state_dict", ckpt))
+    if "proj.0.weight" not in sd:
+        raise ValueError(
+            f"{path} is not an exploration encoder checkpoint (no proj "
+            f"head); MoCo, SCAN and ImageNet-resnet18 checkpoints are not "
+            f"yet read by cet_pick_tpu_torch")
     return sd
 
 

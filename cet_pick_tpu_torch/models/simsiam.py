@@ -1,0 +1,181 @@
+"""SimSiam exploration encoders — port of ``cet_pick_tpu/models/simsiam.py``
+(the 2d3d and 2d patch modes).
+
+Behavioral equivalents of the reference's exploration models
+(reference: cet_pick/models/networks/simsiam_model_2d3d.py:560-892 arch
+``simsiam2d3d_18``, and simsiam_model_2d.py:617-932 arch ``simsiam2d_18``):
+
+* trunk: ResNet-18-style — conv 1->64 k3 s1 (no maxpool), BasicBlock stages
+  [2, 2, 2] at 64/128/256 channels (layer4 dropped), global average pool
+  (simsiam_model_2d3d.py:567-574)
+* 2d3d mode: the 2D tilt patch and the 3D slice patch run through the SAME
+  trunk concatenated along batch (shared weights + shared BN statistics,
+  :737-738), then their pooled features concatenate channel-wise -> fc to
+  head_conv (:755-766)
+* SimSiam heads: proj = 3-layer MLP with BN (final BN affine-free), pred =
+  2-layer MLP (:588-607); the returned 'proj' is detached — the
+  reference's ``.detach()`` (:769-779)
+
+Modules keep the reference's names (``conv1``, ``bn1``,
+``layer{s}.{b}.conv1|bn1|conv2|bn2|downsample.0|downsample.1``, ``fc``,
+``proj.0/1/3/4/6/7``, ``pred.0/1/3``), so the state dict is the reference
+``.pth`` layout. Layout is PyTorch's NCHW. BatchNorm keeps flax's running
+statistics (momentum 0.9, biased variance). The 3D-subvolume trunks
+(``vol`` mode) and the SCAN clustering model are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cet_pick_tpu_torch.models.unet import BatchNorm2d
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with flax's running statistics: in train mode it
+    updates ``ra = 0.9 * ra + 0.1 * stat`` with the *biased* batch variance,
+    as ``models/unet.BatchNorm2d`` does for 2D maps (torch's own update
+    uses the unbiased one). Eval mode and the state-dict keys are the stock
+    module's."""
+
+    def __init__(self, num_features: int, affine: bool = True):
+        super().__init__(num_features, eps=1e-5, momentum=0.1, affine=affine)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=0, correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs with BN and a residual; a 1x1 conv + BN downsample
+    where the width or the stride changes (simsiam.py:31-65). The 3x3 convs
+    pad (1, 1) at every stride, as torch's conv3x3 does."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, features, 3, stride, 1,
+                               bias=False)
+        self.bn1 = BatchNorm2d(features)
+        self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(features)
+        self.downsample = None
+        if in_channels != features or stride != 1:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_channels, features, 1, stride, bias=False),
+                BatchNorm2d(features))
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+def explore_mode(config) -> str:
+    """The exploration modality from the task/arch strings
+    (simsiam.py:92-125): '2d3d' (paired tilt-projection + z-slice
+    patches), 'vol' (3D subvolumes: task ``simsiam`` or the ``simsiam_N`` /
+    ``moco3d_N`` / ``*ref_N`` arches) or '2d' (single z-slice patches)."""
+    if "2d3d" in config.arch or "2d3d" in config.task:
+        return "2d3d"
+    stem = config.arch.split("_")[0]
+    if stem in ("simsiam", "moco3d", "simsiamref", "moco3dref"):
+        return "vol"
+    if config.task == "simsiam":
+        if stem in ("simsiam2d", "moco"):
+            raise ValueError(
+                f"--task simsiam (3D-subvolume exploration) conflicts with "
+                f"2D arch '{config.arch}'; use --arch simsiam_18|moco3d_18 "
+                f"for vol mode or --task simsiam3d for 2D patches"
+            )
+        return "vol"
+    return "2d"
+
+
+class SimSiamEncoder(nn.Module):
+    """Shared trunk + fc + proj/pred heads (simsiam.py:383-437).
+
+    mode '2d3d': inputs are (patch_2d, patch_3d) pairs -> features concat to
+    512 before fc. mode '2d': single patch -> 256 -> fc.
+    """
+
+    def __init__(self, head_conv: int = 128, mode: str = "2d3d"):
+        super().__init__()
+        if mode not in ("2d3d", "2d"):
+            raise NotImplementedError(
+                f"exploration mode {mode!r} is not yet ported to "
+                f"cet_pick_tpu_torch")
+        self.mode = mode
+        self.conv1 = nn.Conv2d(1, 64, 3, 1, 1, bias=False)
+        self.bn1 = BatchNorm2d(64)
+        cin = 64
+        # stages [2, 2, 2] at 64/128/256, stride 2 entering stages 2 and 3
+        for stage, feats in enumerate((64, 128, 256)):
+            setattr(self, f"layer{stage + 1}", nn.Sequential(
+                BasicBlock(cin, feats, 2 if stage > 0 else 1),
+                BasicBlock(feats, feats)))
+            cin = feats
+        d = head_conv
+        self.fc = nn.Linear(512 if mode == "2d3d" else 256, d)
+        # Sequential indices 0,1 / 3,4 / 6,7 (simsiam_model_2d3d.py:590-598)
+        self.proj = nn.Sequential(
+            nn.Linear(d, d, bias=False), BatchNorm1d(d), nn.ReLU(),
+            nn.Linear(d, d, bias=False), BatchNorm1d(d), nn.ReLU(),
+            nn.Linear(d, d, bias=False), BatchNorm1d(d, affine=False))
+        # Sequential indices 0,1 / 3 (:600-605)
+        self.pred = nn.Sequential(
+            nn.Linear(d, d, bias=False), BatchNorm1d(d), nn.ReLU(),
+            nn.Linear(d, d))
+
+    def trunk(self, x):
+        """(B, 1, H, W) -> pooled (B, 256) (``ResNetTrunk``, simsiam.py:68-89)."""
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = self.layer3(self.layer2(self.layer1(x)))
+        return x.mean(dim=(2, 3))
+
+    def encode(self, x2d, x3d=None):
+        """Pooled feature of one view: x2d / x3d (B, 1, H, W); x3d is None
+        in 2d mode. In 2d3d the two patches share the trunk and its batch
+        statistics (one batch-concatenated pass, simsiam.py:409-420)."""
+        if self.mode == "2d3d":
+            b = x2d.shape[0]
+            feat = self.trunk(torch.cat([x2d, x3d], dim=0))
+            feat = torch.cat([feat[:b], feat[b:]], dim=1)  # (B, 512)
+        else:
+            feat = self.trunk(x2d)
+        return self.fc(feat)
+
+    def heads_of(self, feat):
+        z = self.proj(feat)
+        return {"proj": z.detach(), "pred": self.pred(z)}
+
+    def forward(self, x1_2d, x1_3d, x2_2d, x2_3d):
+        """Two augmented views -> [ret1, ret2] with detached proj targets
+        (simsiam_model_2d3d.py:728-782)."""
+        return [self.heads_of(self.encode(x1_2d, x1_3d)),
+                self.heads_of(self.encode(x2_2d, x2_3d))]
+
+    def forward_test(self, x1_2d, x1_3d=None):
+        """Single-view embeddings (simsiam_model_2d3d.py:697-726); the
+        caller sets eval mode."""
+        return self.heads_of(self.encode(x1_2d, x1_3d))
+
+
+def create_simsiam(config) -> SimSiamEncoder:
+    """arch 'simsiam2d3d_18' / 'simsiam2d_18' -> SimSiamEncoder
+    (simsiam.py:440-454, reference models/model.py:32-70). The 3D-subvolume
+    arches and bfloat16 are not ported yet."""
+    if config.dtype != "float32":
+        raise NotImplementedError(
+            f"--dtype {config.dtype}: the port runs float32 only so far")
+    return SimSiamEncoder(head_conv=config.head_conv,
+                          mode=explore_mode(config))

@@ -12,6 +12,8 @@ Same math as the JAX functions (reference cet_pick/models/loss.py):
                           regularization over two views)
 * ``supcon_loss``       — losses.py:480-511 (supervised contrastive, ``--pn``)
 * ``consistency_loss``  — losses.py:518-520 (MSE between view heatmaps)
+* ``simsiam_loss``      — losses.py:523-542 (exploration: symmetric negative
+                          cosine with stop-gradient targets)
 
 The two contrastive losses take a leading batch axis — labels (B, N),
 features (B, N, C) — and return per-sample values (B,): the batch axis
@@ -313,3 +315,22 @@ def supcon_loss(labels, feats, feats_cr, temp=0.07, thresh=0.5, block=1024):
 def consistency_loss(out_prob, out_prob_cr):
     """MSE between the two views' heatmaps (losses.py:518-520)."""
     return torch.mean((out_prob - out_prob_cr) ** 2)
+
+
+def simsiam_loss(p1, z1, p2, z2):
+    """Symmetric negative cosine similarity with stop-gradient targets
+    (losses.py:523-542; reference trains/tomo_simsiam_trainer.py:28-40):
+    loss = -(cos(p1, z2) + cos(p2, z1)) / 2, norms clamped at 1e-12. Also
+    returns the collapse monitor: the mean over feature dims of the
+    per-dim std (ddof 0, as numpy's) of the normalized z1."""
+
+    def _unit(a):
+        return a / torch.linalg.vector_norm(a, dim=-1,
+                                            keepdim=True).clamp(min=1e-12)
+
+    def _cos(a, b):
+        return (_unit(a) * _unit(b)).sum(dim=-1).mean()
+
+    z1, z2 = z1.detach(), z2.detach()
+    loss = -(_cos(p1, z2) + _cos(p2, z1)) / 2
+    return loss, _unit(z1).std(dim=0, correction=0).mean()

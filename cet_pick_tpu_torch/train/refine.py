@@ -190,15 +190,16 @@ def prepare_refine(config, log_fn=print, device="cuda"):
 
 
 def run_epoch(train_step, state, dataset, rng, config, epoch, device,
-              log_fn=print, check=None):
+              log_fn=print, check=None, lr=None):
     """One epoch of ``train_step`` over ``dataset.epoch_batches``, shared by
-    the refinement and supervised loops (refine.py:308-420,
-    supervised.py:238-270): the epoch's learning rate, the ``--num_iters``
+    the refinement, supervised and exploration loops (refine.py:308-420,
+    supervised.py:238-270, explore.py:243-342): the epoch's learning rate
+    (``lr``, else the step decay's), the ``--num_iters``
     cap, batches built and copied to the device by a producer thread, and
     metrics read one step late (train/metrics.py); ``check`` sees each
     step's metrics as they arrive. Logs and returns the epoch's means, and
     logs the samples/s of the steps after the first."""
-    set_learning_rate(state, lr_at_epoch(config, epoch))
+    set_learning_rate(state, lr_at_epoch(config, epoch) if lr is None else lr)
     epoch_metrics = []
     cap = config.num_iters if config.num_iters >= 0 else None
     drain = LaggedMetrics()

@@ -1,8 +1,9 @@
 """Train state + checkpointing — port of ``cet_pick_tpu/train/state.py``.
 
 The state is the model, ``torch.optim.Adam`` with optax's defaults (betas
-0.9 / 0.999 as float32, eps 1e-8; state.py:59-90), and the ``step`` /
-``epoch`` counters. Checkpoints are ``.pth`` files in the reference's layout,
+0.9 / 0.999 as float32, eps 1e-8; state.py:59-90) or the optimizer the
+caller passes (exploration's plain SGD), and the ``step`` / ``epoch``
+counters. Checkpoints are ``.pth`` files in the reference's layout,
 ``{'epoch', 'state_dict', 'optimizer'}`` (reference models/model.py:195-296),
 written atomically with ``opt.json`` beside them (state.py:139-150). JAX's
 ``prepare_refine`` reads such a ``.pth`` (refine.py:270-286), so the JAX
@@ -34,13 +35,16 @@ ADAM_BETAS = (float(np.float32(0.9)), float(np.float32(0.999)))
 
 
 class TrainState:
-    """Model + Adam over all its parameters + counters (JAX ``TrainState``
-    and ``create_train_state``, state.py:27-90)."""
+    """Model + optimizer over all its parameters + counters (JAX
+    ``TrainState`` and ``create_train_state``, state.py:27-90). The
+    optimizer is Adam unless the caller passes its own (exploration's plain
+    SGD, train/explore.py)."""
 
-    def __init__(self, model, lr: float):
+    def __init__(self, model, lr: float, optimizer=None):
         self.model = model
-        self.optimizer = torch.optim.Adam(model.parameters(), lr=lr,
-                                          betas=ADAM_BETAS, eps=1e-8)
+        self.optimizer = optimizer if optimizer is not None else \
+            torch.optim.Adam(model.parameters(), lr=lr, betas=ADAM_BETAS,
+                             eps=1e-8)
         self.step = 0
         self.epoch = 0
 

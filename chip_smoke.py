@@ -81,6 +81,30 @@ non-zero; nothing falls back to the CPU):
              finite, a later epoch below the first), then ``test`` with its
              ``model_best.pth`` untiled (the z-tap kernel in the context
              stage at (1, 256, 256, 256, 32)), F1 reported
+14. explore_model ``simsiam2d3d_18`` (head_conv 128, bbox 36) with seeded
+             weights, the card against the CPU: a train-mode two-view
+             forward (loss, std, proj / pred, BN running statistics), one
+             SGD step's parameters, an eval ``forward_test`` of 16 patches;
+             and both augment pipelines' apply on one set of drawn
+             parameters at batch 256
+15. explore  two new 256x512x512 recs with ~150 planted particles of two
+             classes each (small dense, large diffuse) and their 41-tilt
+             series (-60..60 deg by 3, each particle drawn at its
+             ``tomo_to_tilt`` position): the mining costs (the loader, the
+             DoG response's device ms, greedy NMS s, tilt-sum s, candidate
+             counts; the DoG response and candidates on a 64-slice slab,
+             card against CPU), then ``python -m cet_pick_tpu_torch
+             explore`` at its defaults (2d3d, batch 256, lr 1e-3, cosine):
+             every epoch's loss finite, its std monitor > 0.01,
+             ``model_last.pth`` written; samples/s, peak device memory;
+             one explore step by stage (augment, forward, loss, backward,
+             SGD) with the card's busy share
+16. embed    ``embed`` on that checkpoint: the npz's keys, dtypes and
+             shapes, ``proj`` finite, as many rows as the test split has
+             patches; patches/s and the 1-NN label agreement of ``proj``
+             between the two planted classes (reported)
+17. explore_2d / embed_2d  the same for ``--task simsiam3d --arch
+             simsiam2d_18`` (z-slice patches only) for 2 epochs
 
 The model phase also runs ``res3d_2`` and ``res3dref_18``: the card's
 untiled forward against the CPU's, and one untiled forward of a
@@ -88,15 +112,17 @@ untiled forward against the CPU's, and one untiled forward of a
 also times the z-tap kernel at res3d_2's shape, and the gram phase the
 row and logit kernels at the semiclass step's (8, 12288, 32).
 
-Each train / test run is a main-path run: every launch count is set to 0
-just before it and read just after. Then the nvidia-smi line, a
+Each train / test / explore / embed run is a main-path run: every launch
+count is set to 0 just before it and read just after (the exploration path
+launches none of the kernels: its counts read 0). Then the nvidia-smi line, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 It imports nothing of JAX.
 
     python3 chip_smoke.py --train-seeds 317,1,2
 
 only trains and tests ``unetw_3`` once per seed (``train_seeds``), to hold
-one tree's training against another's.
+one tree's training against another's; it runs none of the other phases,
+the exploration ones included.
 """
 
 from __future__ import annotations
@@ -190,10 +216,14 @@ GRAM_LSUM = (2e-5, 1e-5)   # logit sums cancel
 GRAM_GRAD = (3e-4, 3e-5)
 # Training on the main path's volumes: the Config defaults (unet_4, batch
 # 1, 6x64x64 crop pairs, contrastive), every annotation once per epoch.
-TRAIN_EPOCHS = 4
+# Two epochs of semi and cr (4 and 3 until the exploration phases joined
+# the run). unetw_3 keeps four: its gate asks for a later epoch below the
+# first, and at two epochs its one later epoch stayed above the first in
+# one of three runs on the card (PERF.md).
+TRAIN_EPOCHS = 2
 PN_STEPS = 20
 BREAKDOWN_STEPS = 10
-CR_EPOCHS = 3
+CR_EPOCHS = 2
 TOMO_STEPS = 20
 UNETW_EPOCHS = 4
 # semiclass (unet_4, batch 8, contrastive): --num_iters 128 draws a
@@ -1436,6 +1466,502 @@ def memory_by_module(model, run):
             "largest_transients_bytes": [(n, t) for n, t, _ in rows[:4]]}
 
 
+# -- exploration (explore / embed, SimSiam 2d3d and 2d) ----------------------
+
+# explore's defaults (cet_pick_tpu/__main__.py:184-206): simsiam2d3d_18 at
+# head_conv 128, bbox 36, batch 256, lr 1e-3, cosine. Two 256x512x512 recs
+# with ~150 planted particles of two classes each and their 41-tilt series.
+EXPLORE_PARTICLES = 150
+EXPLORE_ANGLES = np.arange(-60.0, 61.0, 3.0)
+# (amplitude, gaussian sigma) of the two planted classes: small dense and
+# large diffuse (tests/test_explore.py:407-440)
+EXPLORE_CLASSES = ((2.5, 2.0), (1.8, 3.0))
+# explore: 25,750 candidates in 100 steps an epoch, 12.6 s at 2,046
+# samples/s (PERF.md, PR 7): 4 epochs fill about a minute
+EXPLORE_EPOCHS = 4
+EXPLORE_2D_EPOCHS = 2
+EXPLORE_BATCH = 256
+EXPLORE_MODEL_BATCH = 32  # the card-vs-CPU check: the CPU runs it too
+EXPLORE_STD_GATE = 0.01   # tests/test_explore.py:363
+NN_RADIUS = 8.0           # tests/test_explore.py:474
+# card against CPU, as tests/test_torch_simsiam.py holds the port to JAX:
+# proj / pred within 1e-4; the loss and std within 1e-5; the BN running
+# variances within 1e-5 of each tensor's largest and the running means
+# within 1e-5 of the largest running std; the parameters after one SGD
+# step at lr 1e-3 within 1e-5 of max(1, the tensor's largest); the
+# gradients within 1e-1 of each tensor's largest: at these inputs (random
+# patches, a fresh model, batch 32) the CPU's own f32 gradients lie up to
+# 3.3e-2 of that from its float64 ones (layer2.1.conv1; the training-mode
+# BatchNorm backward cancels), so the bar only catches gross faults. The augment applies
+# within 1e-4: the 2d pipeline resamples at f32 positions, and on the CPU
+# its f32 result lies 2.3e-5 from float64 at these inputs (normalized by a
+# std of 0.2).
+EXPLORE_OUT_TOL = 1e-4
+EXPLORE_LOSS_TOL = 1e-5
+EXPLORE_STAT_TOL = 1e-5
+EXPLORE_GRAD_TOL = 1e-1
+EXPLORE_PARAM_TOL = 1e-5
+AUG_TOL = 1e-4
+DOG_TOL = 1e-6            # response abs, cutoff rel (tests/test_torch_explore_data.py)
+EXPLORE_ARGS = {"2d3d": ["--task", "simsiam2d3d", "--arch", "simsiam2d3d_18"],
+                "2d": ["--task", "simsiam3d", "--arch", "simsiam2d_18"]}
+
+
+def _plant(vol, centre, amp, sigma):
+    """Subtract a gaussian blob of ``amp`` and ``sigma`` at (x, y, z) from a
+    (D, H, W) volume (or at (x, y) from an (H, W) image)."""
+    r = int(3 * sigma + 1)
+    grids = np.mgrid[tuple(slice(-r, r + 1) for _ in centre)]
+    blob = amp * np.exp(-sum(g ** 2 for g in grids) / (2 * sigma ** 2))
+    idx = tuple(slice(c - r, c + r + 1) for c in reversed(centre))
+    vol[idx] -= blob.astype(np.float32)
+
+
+def write_explore_data(work):
+    """Two recs with planted particles of two classes, their tilt series
+    and angle files, and the 2d3d image list (``explore_images.txt``).
+    The rec is written as xzy (the 2d3d loader's fixed rec order) and the
+    tilts as zxy; each tilt image is noise plus every particle drawn at its
+    ``tomo_to_tilt`` position. Returns {name: [(x, y, z, class), ...]}."""
+    from cet_pick_tpu_torch.data.explore_dataset import tomo_to_tilt
+
+    rng = np.random.default_rng(7)
+    d, h, w = VOLUME
+    planted, rows = {}, []
+    for name in ("exp_a", "exp_b"):
+        vol = rng.standard_normal(VOLUME, dtype=np.float32) * 0.5
+        centres = []
+        while len(centres) < EXPLORE_PARTICLES:
+            c = (int(rng.integers(80, w - 80)), int(rng.integers(64, h - 64)),
+                 int(rng.integers(20, d - 20)))
+            if all(sum((a - b) ** 2 for a, b in zip(c, o[:3])) > 20 ** 2
+                   for o in centres):
+                centres.append(c + (len(centres) % 2,))
+        for x, y, z, cls in centres:
+            _plant(vol, (x, y, z), *EXPLORE_CLASSES[cls])
+        tilt = rng.standard_normal((len(EXPLORE_ANGLES), h, w),
+                                   dtype=np.float32) * 0.5
+        for i, angle in enumerate(EXPLORE_ANGLES):
+            for x, y, z, cls in centres:
+                tx, ty = tomo_to_tilt((x, y, z), angle, (w, h, d))
+                if 10 <= tx < w - 10:
+                    _plant(tilt[i], (tx, ty), *EXPLORE_CLASSES[cls])
+        rec_path = os.path.join(work, f"{name}.rec")
+        write_mrc(rec_path, np.ascontiguousarray(np.swapaxes(vol, 0, 1)))
+        write_mrc(os.path.join(work, f"{name}_tilt.mrc"), tilt)
+        np.savetxt(os.path.join(work, f"{name}.tlt"), EXPLORE_ANGLES)
+        rows.append(f"{name}\t{rec_path}\t{work}/{name}_tilt.mrc\t"
+                    f"{work}/{name}.tlt\n")
+        planted[name] = centres
+        del vol, tilt
+    with open(os.path.join(work, "explore_images.txt"), "w") as fh:
+        fh.write("image_name\trec_path\ttilt_path\tangle_path\n" + "".join(rows))
+    return planted
+
+
+def _rel_err(got, want, scale=None):
+    """max |got - want| over the largest |want| (or over ``scale``)."""
+    if scale is None:
+        scale = float(want.double().abs().max())
+    return float((got.double() - want.double()).abs().max()) / max(scale,
+                                                                    1e-30)
+
+
+def explore_state_errors(card, cpu):
+    """The worst errors of a train step's state, card against CPU: the BN
+    running variances (of each tensor's largest) and means (of the largest
+    running std), the gradients (of each tensor's largest; fc.bias feeds a
+    BatchNorm, so its gradient is 0 but for rounding) and the parameters
+    after the step (of max(1, the tensor's largest))."""
+    sd_g, sd_c = card["state"], cpu["state"]
+    var = {k[:-len("running_var")]: float(v.max()) for k, v in sd_c.items()
+           if k.endswith("running_var")}
+    return {
+        "bn_var_rel": max(_rel_err(sd_g[k], sd_c[k]) for k in sd_c
+                          if k.endswith("running_var")),
+        "bn_mean_rel": max(
+            _rel_err(sd_g[k], sd_c[k],
+                     math.sqrt(var[k[:-len("running_mean")]]))
+            for k in sd_c if k.endswith("running_mean")),
+        "grad_rel": max(_rel_err(card["grads"][k], g)
+                        for k, g in cpu["grads"].items() if k != "fc.bias"),
+        "param_rel": max(
+            _rel_err(sd_g[k], p, max(1.0, float(p.abs().max())))
+            for k, p in sd_c.items()
+            if p.is_floating_point() and "running" not in k)}
+
+
+def phase_explore_model():
+    """``simsiam2d3d_18`` (head_conv 128) with seeded weights, the card
+    against the CPU at bbox 36: a train-mode two-view forward (loss, std,
+    proj / pred), its gradients, the BN running statistics and the
+    parameters after one SGD step, and an eval ``forward_test`` of 16
+    patches; then both augment pipelines' apply on the same drawn
+    parameters at the explore batch."""
+    from cet_pick_tpu_torch.ops import augment as A
+    from cet_pick_tpu_torch.train.explore import prepare_explore
+
+    cfg = Config(task="simsiam2d3d", arch="simsiam2d3d_18", bbox=36,
+                 lr=1e-3).finalize()
+    rng = np.random.default_rng(3)
+    b = EXPLORE_MODEL_BATCH
+    views = [torch.from_numpy(rng.standard_normal((b, 2, 36, 36),
+                                                  dtype=np.float32))
+             for _ in range(2)]
+    test = [torch.from_numpy(rng.standard_normal((16, 1, 36, 36),
+                                                 dtype=np.float32))
+            for _ in range(2)]
+    out = {}
+    for dev in ("cpu", DEVICE):
+        prepared = prepare_explore(cfg, log_fn=lambda *_: None, device=dev)
+        model, state = prepared["model"], prepared["state"]
+        model.train()
+        v1, v2 = (v.to(dev) for v in views)
+        ret1, ret2 = model(v1[:, :1], v1[:, 1:], v2[:, :1], v2[:, 1:])
+        loss, std = train_losses.simsiam_loss(ret1["pred"], ret1["proj"],
+                                              ret2["pred"], ret2["proj"])
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        state.optimizer.step()
+        model.eval()
+        with torch.no_grad():
+            emb = model.forward_test(*(t.to(dev) for t in test))
+        out[dev] = {"loss": loss.detach().cpu(), "std": std.cpu(),
+                    "proj": torch.cat([ret1["proj"], ret2["proj"]]).cpu(),
+                    "pred": torch.cat([ret1["pred"], ret2["pred"]])
+                    .detach().cpu(),
+                    "eval_proj": emb["proj"].cpu(),
+                    "eval_pred": emb["pred"].cpu(), "grads": grads,
+                    "state": {k: v.cpu() for k, v in
+                              model.state_dict().items()}}
+    cpu, card = out["cpu"], out[DEVICE]
+    errs = {k: float((card[k] - cpu[k]).abs().max())
+            for k in ("loss", "std", "proj", "pred", "eval_proj",
+                      "eval_pred")}
+    errs.update(explore_state_errors(card, cpu))
+    bars = {"loss": EXPLORE_LOSS_TOL, "std": EXPLORE_LOSS_TOL,
+            "bn_var_rel": EXPLORE_STAT_TOL, "bn_mean_rel": EXPLORE_STAT_TOL,
+            "grad_rel": EXPLORE_GRAD_TOL, "param_rel": EXPLORE_PARAM_TOL}
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.from_numpy(rng.random((EXPLORE_BATCH, 2, 36, 36),
+                                    dtype=np.float32))
+    mean, std = torch.tensor([0.45, 0.5]), torch.tensor([0.2, 0.25])
+    for name, draw, apply, c in (
+            ("augment_2d3d", A.draw_simsiam_params, A.apply_simsiam, 2),
+            ("augment_2d", A.draw_simsiam_3d_params, A.apply_simsiam_3d, 1)):
+        params = draw(EXPLORE_BATCH, 36, 36, gen, "cpu")
+        want = apply(x[:, :c], params, mean[:c], std[:c], 36)
+        got = apply(x[:, :c].to(DEVICE), {k: v.to(DEVICE) for k, v in
+                                          params.items()},
+                    mean[:c].to(DEVICE), std[:c].to(DEVICE), 36)
+        errs[name] = float((got.cpu() - want).abs().max())
+        bars[name] = AUG_TOL
+    fails = [k for k, v in errs.items()
+             if not v <= bars.get(k, EXPLORE_OUT_TOL)]
+    rec = {"phase": "explore_model", "arch": cfg.arch, "batch": b,
+           "bbox": 36, "head_conv": cfg.head_conv, "card_vs_cpu": errs,
+           "bars": {k: bars.get(k, EXPLORE_OUT_TOL) for k in errs}}
+    emit(rec)
+    if fails:
+        raise RuntimeError(f"explore_model: card != CPU at {fails}: {errs}")
+    return rec
+
+
+@contextlib.contextmanager
+def timed_calls(module, names, clock):
+    """Wrap each ``module.<name>`` so that its calls add their seconds to
+    ``clock[name]`` (synchronizing the card after each call); yields
+    ``clock``."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(n, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            clock[n] = clock.get(n, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield clock
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def explore_mining(work):
+    """The exploration datasets' host costs on the main path's data: the
+    2d3d loader (both recs, their tilts), the test split of each mode built
+    from those arrays with its DoG response on the card (device ms by CUDA
+    events on one rec), greedy NMS s, tilt-sum s and candidate counts;
+    then the DoG response and the candidates of a 64-slice slab, the card
+    against the CPU. Returns {mode: test-split size} for the embed gates."""
+    from cet_pick_tpu_torch.data import explore_dataset as ED
+    from cet_pick_tpu_torch.io.coords import read_image_list
+    from cet_pick_tpu_torch.io.loader import load_tomo_all_and_angles_from_list
+    from cet_pick_tpu_torch.ops import dog
+
+    il = read_image_list(os.path.join(work, "explore_images.txt"))
+    t0 = time.perf_counter()
+    tilts, recs, angles = load_tomo_all_and_angles_from_list(
+        il["image_name"], il["tilt_path"], il["rec_path"], il["angle_path"])
+    rec = {"phase": "explore_mining", "load_s": time.perf_counter() - t0,
+           "volume": list(VOLUME), "tilts": len(EXPLORE_ANGLES)}
+    sizes = {}
+    for mode in ("2d3d", "2d"):
+        cfg = Config(task=EXPLORE_ARGS[mode][1], arch=EXPLORE_ARGS[mode][3],
+                     bbox=36).finalize()
+        kw = (dict(tilts=tilts, angles={k: v.ravel() for k, v in
+                                        angles.items()})
+              if mode == "2d3d" else {})
+        clock = {}
+        t0 = time.perf_counter()
+        with timed_calls(ED, ["dog_candidates_pyramid"], clock), \
+                timed_calls(dog, ["greedy_nms_3d"], clock), \
+                timed_calls(ED.ExploreDataset, ["_tilt_sums_batch",
+                                                "_slices_batch"], clock):
+            ds = ED.ExploreDataset(cfg, "test", images=recs, device=DEVICE,
+                                   **kw)
+        sizes[mode] = len(ds)
+        rec[mode] = {"test_split_build_s": time.perf_counter() - t0,
+                     "mining_s": clock["dog_candidates_pyramid"],
+                     "greedy_nms_s": clock["greedy_nms_3d"],
+                     "tilt_sums_s": clock.get("_tilt_sums_batch", 0.0),
+                     "slices_s": clock["_slices_batch"], "patches": len(ds)}
+        del ds
+    vol = torch.from_numpy(next(iter(recs.values()))).to(DEVICE)
+    rec["dog_response_ms"] = time_ms(
+        lambda: dog.dog_response(vol, sigmas=(2.5, 5.0), bound_xy=30), 3)
+    scores, coords = dog.dog_candidates_pyramid(vol.cpu().numpy(),
+                                                sigmas=(2.5, 5.0),
+                                                device=DEVICE)
+    rec["candidates_per_rec"] = int(len(coords))
+    mid = vol.shape[0] // 2
+    slab = vol[max(0, mid - 32):mid + 32].contiguous()
+    r_card, c_card = dog.dog_response(slab, sigmas=(2.5, 5.0))
+    r_cpu, c_cpu = dog.dog_response(slab.cpu(), sigmas=(2.5, 5.0))
+    rows_card = dog.dog_candidates_pyramid(slab.cpu().numpy(), (2.5, 5.0),
+                                           device=DEVICE)[1]
+    rows_cpu = dog.dog_candidates_pyramid(slab.cpu().numpy(), (2.5, 5.0))[1]
+    rec["dog_card_vs_cpu"] = {
+        "response_max_abs_err": float((r_card.cpu() - r_cpu).abs().max()),
+        "cutoff_rel_err": abs(float(c_card) - float(c_cpu)) / abs(float(c_cpu)),
+        "rows": [len(rows_card), len(rows_cpu)],
+        "rows_equal": bool(np.array_equal(rows_card, rows_cpu))}
+    emit(rec)
+    dc = rec["dog_card_vs_cpu"]
+    if not (dc["response_max_abs_err"] <= DOG_TOL
+            and dc["cutoff_rel_err"] <= DOG_TOL and dc["rows_equal"]):
+        raise RuntimeError(f"DoG: card != CPU: {dc}")
+    return sizes
+
+
+def phase_explore(work, mode="2d3d", epochs=None):
+    """``python -m cet_pick_tpu_torch explore`` at its defaults (2d3d; or
+    2d) on the exploration volumes: every epoch's loss finite and its std
+    monitor above EXPLORE_STD_GATE, ``model_last.pth`` written; samples/s
+    of each epoch's steps after its first, the peak device memory, the
+    (zero) kernel launches. Returns the record."""
+    phase = "explore" if mode == "2d3d" else "explore_2d"
+    epochs = epochs or EXPLORE_EPOCHS
+    argv = ["explore", *EXPLORE_ARGS[mode], "--exp_id", phase, "--data_dir",
+            work, "--root_dir", work, "--device", DEVICE, "--train_img_txt",
+            "explore_images.txt", "--num_epochs", str(epochs),
+            "--batch_size", str(EXPLORE_BATCH)]
+    torch.cuda.reset_peak_memory_stats()
+    lines, launches, wall = run_cli(argv)
+    means, rates = _epoch_lines(lines)
+    build = next(float(re.search(r"dataset build: ([0-9.]+)s", ln).group(1))
+                 for ln in lines if ln.startswith("dataset build"))
+    samples = int(next(re.search(r"\((\d+) training samples\)", ln).group(1)
+                       for ln in lines if ln.startswith("dataset build")))
+    ckpt = os.path.join(work, "exp", EXPLORE_ARGS[mode][1], phase,
+                        "model_last.pth")
+    rec = {"phase": phase, "arch": EXPLORE_ARGS[mode][3], "epochs": epochs,
+           "batch": EXPLORE_BATCH, "bbox": 36, "head_conv": 128,
+           "training_samples": samples, "dataset_build_s": build,
+           "epoch_means": means, "steady_samples_per_s": rates,
+           "cli_wall_s": wall, "launches": launches,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "checkpoint": os.path.exists(ckpt)}
+    emit(rec)
+    loss = [means[e]["loss"] for e in sorted(means)]
+    std = [means[e]["std"] for e in sorted(means)]
+    if len(loss) != epochs or not all(math.isfinite(v) for v in loss) \
+            or not min(std) > EXPLORE_STD_GATE or not rec["checkpoint"]:
+        raise RuntimeError(f"{phase}: loss {loss}, std {std}, checkpoint "
+                           f"{rec['checkpoint']}")
+    return rec
+
+
+def phase_explore_breakdown():
+    """One 2d3d explore step at batch 256 by stage, device ms from CUDA
+    events (each step synchronized): both views' augment, the two-view
+    forward, the loss, the backward, SGD; the wall time of unsynchronized
+    steps and the card's busy share from torch.profiler. A fresh model on
+    uniform [0, 1) patches (the step's device work does not depend on the
+    values)."""
+    from cet_pick_tpu_torch.train.explore import (
+        make_simsiam_train_step,
+        prepare_explore,
+    )
+
+    cfg = Config(task="simsiam2d3d", arch="simsiam2d3d_18", bbox=36,
+                 batch_size=EXPLORE_BATCH, lr=1e-3, cosine=True).finalize()
+    prepared = prepare_explore(cfg, log_fn=lambda *_: None, device=DEVICE)
+    model, state = prepared["model"], prepared["state"]
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    mean = torch.tensor([0.45, 0.5], device=DEVICE)
+    std = torch.tensor([0.2, 0.25], device=DEVICE)
+    step = make_simsiam_train_step(model, cfg, mean, std, gen)
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.from_numpy(rng.random((EXPLORE_BATCH, 2, 36, 36),
+                                               dtype=np.float32)).to(DEVICE)
+                for k in ("anchor", "aug")}
+               for _ in range(3 + 3 * BREAKDOWN_STEPS)]
+
+    def timed_step(batch):
+        marks = [_event()]
+        model.train()
+        v1, v2 = step.augment(batch)
+        marks.append(_event())
+        ret1, ret2 = model(v1[:, :1], v1[:, 1:], v2[:, :1], v2[:, 1:])
+        marks.append(_event())
+        loss, _ = train_losses.simsiam_loss(ret1["pred"], ret1["proj"],
+                                            ret2["pred"], ret2["proj"])
+        marks.append(_event())
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        marks.append(_event())
+        state.optimizer.step()
+        marks.append(_event())
+        return marks
+
+    for b in batches[:3]:
+        timed_step(b)
+    torch.cuda.synchronize()
+    names = ("augment", "forward", "loss", "backward", "sgd")
+    stages = dict.fromkeys(names + ("total",), 0.0)
+    for b in batches[3:3 + BREAKDOWN_STEPS]:
+        marks = timed_step(b)
+        torch.cuda.synchronize()
+        for k, a, z in zip(names, marks, marks[1:]):
+            stages[k] += a.elapsed_time(z) / BREAKDOWN_STEPS
+        stages["total"] += marks[0].elapsed_time(marks[-1]) / BREAKDOWN_STEPS
+    rest = batches[3 + BREAKDOWN_STEPS:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in rest[:BREAKDOWN_STEPS]:
+        step(state, b)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / BREAKDOWN_STEPS
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for b in rest[BREAKDOWN_STEPS:]:
+            step(state, b)
+        torch.cuda.synchronize()
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3 / BREAKDOWN_STEPS)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not e.is_user_annotation
+         and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    device_ms = sum(ms for _, ms in kernels)
+    # 4 * batch patch-forwards a step (2 views x tilt + slice); the trunk's
+    # convs and the heads' dense layers, 2 FLOP a multiply-add; backward 2x
+    fwd_flop = 4 * EXPLORE_BATCH * explore_patch_flop(cfg.head_conv)
+    rec = {"phase": "explore_breakdown", "arch": cfg.arch, "what": "device "
+           "ms per explore step (2d3d, batch 256, bbox 36, head_conv 128)",
+           "stages_ms": stages, "wall_ms_per_step": wall_ms,
+           "samples_per_s_unsynchronized": 1e3 * EXPLORE_BATCH / wall_ms,
+           "profiled_kernel_ms_per_step": device_ms,
+           "device_busy_share": device_ms / wall_ms if device_ms else None,
+           "top_kernels_ms_per_step": kernels[:10],
+           "step_tflop": 3 * fwd_flop / 1e12,
+           "achieved_tflops": 3 * fwd_flop / wall_ms / 1e9}
+    emit(rec)
+    return rec
+
+
+def explore_patch_flop(head_conv, hw=36):
+    """FLOP of one patch's trunk forward (3x3 convs and 1x1 downsamples at
+    stride 1 / 2 / 2) plus its share of fc and the heads."""
+    flop, cin, s = 2.0 * hw * hw * 9 * 64, 64, hw  # conv1
+    for feats, stride in ((64, 1), (128, 2), (256, 2)):
+        s = (s + stride - 1) // stride
+        flop += 2.0 * s * s * 9 * (cin * feats + feats * feats)  # block 0
+        if stride != 1:
+            flop += 2.0 * s * s * cin * feats  # downsample
+        flop += 2.0 * s * s * 9 * 2 * feats * feats  # block 1
+        cin = feats
+    # per patch-forward: half of fc (512 -> d) and of the 5 d x d layers
+    return flop + 0.5 * 2.0 * (512 * head_conv + 5 * head_conv ** 2)
+
+
+def phase_embed(work, planted, sizes, mode="2d3d"):
+    """``python -m cet_pick_tpu_torch embed`` on an explore run's
+    ``model_last.pth``: the npz's keys, dtypes and shapes, ``proj`` finite,
+    as many rows as the test split has patches; the forward's patches/s,
+    and the 1-NN label agreement of ``proj`` between the two planted
+    classes over the candidates within NN_RADIUS px of a planted centre
+    (reported: JAX's slow test bars 0.65 at another schedule)."""
+    phase = "embed" if mode == "2d3d" else "embed_2d"
+    exp_id = "explore" if mode == "2d3d" else "explore_2d"
+    argv = ["embed", *EXPLORE_ARGS[mode], "--exp_id", exp_id, "--data_dir",
+            work, "--root_dir", work, "--device", DEVICE, "--test_img_txt",
+            "explore_images.txt"]
+    lines, launches, wall = run_cli(argv)
+    m = next(re.search(r"forward ([0-9.]+)s for (\d+) patches", ln)
+             for ln in lines if ln.startswith("embed:"))
+    out = np.load(os.path.join(work, "exp", EXPLORE_ARGS[mode][1], exp_id,
+                               "all_output_info.npz"))
+    keys = ["proj", "pred", "name", "coords", "subvol"] + (
+        ["subvols_2d"] if mode == "2d3d" else [])
+    n = sizes[mode]
+    shapes = {k: list(out[k].shape) for k in out.files}
+    dtypes = {k: str(out[k].dtype) for k in out.files}
+    ok = (out.files == keys and shapes.get("proj") == [n, 128]
+          and shapes.get("pred") == [n, 128] and shapes.get("coords") == [n, 3]
+          and shapes.get("subvol") == [n, 36, 36]
+          and all(dtypes[k] == "float32" for k in keys if k != "name")
+          and dtypes["name"].startswith("<U")
+          and bool(np.isfinite(out["proj"]).all()))
+    emb = out["proj"].astype(np.float64)
+    emb /= np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
+    labels, close = [], []
+    for i, (name, c) in enumerate(zip(out["name"], out["coords"])):
+        ctr = np.array([p[:3] for p in planted[str(name)]], np.float64)
+        dist = np.linalg.norm(ctr - c.astype(np.float64), axis=1)
+        if dist.min() < NN_RADIUS:
+            close.append(i)
+            labels.append(planted[str(name)][int(dist.argmin())][3])
+    agree = None
+    if len(set(labels)) == 2:
+        e = emb[close]
+        sim = e @ e.T
+        np.fill_diagonal(sim, -np.inf)
+        lab = np.array(labels)
+        agree = float((lab[sim.argmax(1)] == lab).mean())
+    rec = {"phase": phase, "keys": out.files, "shapes": shapes,
+           "dtypes": dtypes, "test_split_patches": n,
+           "forward_s": float(m.group(1)),
+           "patches_per_s": int(m.group(2)) / float(m.group(1)),
+           "near_planted": len(close), "classes_near": sorted(set(labels)),
+           "nn_label_agreement": agree, "cli_wall_s": wall,
+           "launches": launches}
+    emit(rec)
+    if not ok:
+        raise RuntimeError(f"{phase}: bad all_output_info.npz: {shapes}, "
+                           f"{dtypes}, expected {n} rows")
+    return rec
+
+
 def _gram_entries(name, rec, launches, fwd_line, bwd_line):
     """The forward's and the backward's entries. Each is one launch
     (``launches``) and, with its column tiles in slices, the partials'
@@ -1525,6 +2051,7 @@ def main(argv=None):
         phase_model(arch)
     for arch in ("res3d_2", "res3dref_18"):
         phase_model_3d(arch)
+    phase_explore_model()
     with tempfile.TemporaryDirectory() as work:
         names, planted = write_data(work)
         _, train_launches, pn_launches = phase_train(work)
@@ -1556,6 +2083,13 @@ def main(argv=None):
                                      "semi3d", phase="semi3d_test",
                                      ckpt="model_best.pth", gate=False,
                                      task="semi3d")
+        explore_data = write_explore_data(work)
+        sizes = explore_mining(work)
+        phase_explore(work)
+        phase_explore_breakdown()
+        phase_embed(work, explore_data, sizes)
+        phase_explore(work, "2d", EXPLORE_2D_EPOCHS)
+        phase_embed(work, explore_data, sizes, "2d")
     if CHECK_FAILURES:
         raise RuntimeError(f"failed: {CHECK_FAILURES}")
     kernels = [

@@ -64,11 +64,13 @@ def test_cuda_device_without_cuda_raises():
         TomoDetector(cfg, state_dict={}, device="cuda")
 
 
-@pytest.mark.parametrize("cmd", ["train", "export-torch", "watch"])
+@pytest.mark.parametrize("cmd", ["train", "export-torch", "watch", "moco"])
 def test_unported_commands_exit_nonzero(cmd, capsys):
     """Unported commands, and ``train`` for the tasks other than semi,
-    semi3d, semiclass, tomo and cr; ``classify-test`` is ported."""
-    assert "classify-test" not in NOT_PORTED and "classify-test" in COMMANDS
+    semi3d, semiclass, tomo and cr; ``classify-test``, ``explore`` and
+    ``embed`` are ported."""
+    for ported in ("classify-test", "explore", "embed"):
+        assert ported not in NOT_PORTED and ported in COMMANDS
     if cmd == "train":
         assert cmd not in NOT_PORTED
         for task in ("simsiam", "denoise"):
