@@ -44,15 +44,38 @@ Ported so far:
                  subvols_2d]) from ``--load_model`` (default
                  ``model_last.pth`` of the experiment; a reference
                  exploration ``.pth`` loads too)
+  watch          ``test`` as a service: poll ``--watch_dir`` every ``--poll``
+                 seconds, pick each new .rec/.mrc once its size and mtime
+                 hold over two polls (``--once``: the backlog, then exit),
+                 record it in ``<out>/.watch_manifest.tsv``; a corrupt file
+                 is recorded ``failed`` and the service goes on
+  classify       voxel classifier training (task tcla, reference
+                 main_class.py): BCE on the ``class`` head, ``unet_4``,
+                 ``--pn``; ``model_last.pth``
+  merge          per-tomogram pick txts -> one table (``--path``, ``--out``)
+  pr-curve       precision-recall / F1 of ``--predicted`` against
+                 ``--targets`` at ``-r`` voxels; ``--out`` writes the table
+  remove-golds   drop picks within ``--r`` of the ``*_gold3d.txt`` beads
+  gen-files      image list (and coordinate table) of a directory of volumes
+  flags          the flag reference page (stdout, or ``--out``)
+  doctor         one JSON health line: devices, and the CUDA kernels built
+                 and held against their plain versions (exit 1 when
+                 unhealthy); ``--empiar DIR`` runs train -> test -> pr-curve
+                 on the EMPIAR tutorial layout
 
-``--device {cuda,cpu}`` picks the device (default cuda; asking for cuda
-without one raises). Every other command of ``python -m cet_pick_tpu``
-exits non-zero with "not yet ported".
+Every command that loads weights takes a ``.pth`` or a JAX checkpoint
+directory (``state.msgpack``). ``--device {cuda,cpu}`` picks the device
+(default cuda; asking for cuda without one raises); every command takes
+it, and the host ones (``merge``, ``pr-curve``, ``remove-golds``,
+``gen-files``, ``flags``) compute nothing on a device. Every other command
+of ``python -m cet_pick_tpu`` exits non-zero with "not yet ported".
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import json
 import os
 import sys
 import time
@@ -62,11 +85,9 @@ from cet_pick_tpu_torch.config import Config
 
 # the JAX package's other commands, in its order (cet_pick_tpu/__main__.py)
 NOT_PORTED = (
-    "watch", "moco", "classify",
-    "fewshot", "denoise", "scan", "scan-finetune", "plot2d",
-    "phoenix", "to-coords", "sublabels", "visualize3d", "merge", "pr-curve",
-    "remove-golds", "gen-files", "extract-spectrum", "match-spectrum",
-    "backproject", "export-torch", "import-torch", "flags", "doctor",
+    "moco", "fewshot", "denoise", "scan", "scan-finetune", "plot2d",
+    "phoenix", "to-coords", "sublabels", "visualize3d", "extract-spectrum",
+    "match-spectrum", "backproject", "export-torch", "import-torch",
 )
 
 
@@ -75,6 +96,16 @@ def _parser(prog, defaults):
     add_config_arguments(parser, defaults)
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="device to run on (default: cuda)")
+    return parser
+
+
+def _host_parser(prog):
+    """The parser of a host command (no tensor work): it takes ``--device``
+    too, so that every command of the port accepts the flag."""
+    parser = argparse.ArgumentParser(prog=prog)
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="accepted for every command; this one computes "
+                             "nothing on a device")
     return parser
 
 
@@ -97,10 +128,6 @@ def cmd_train(argv):
         from cet_pick_tpu_torch.train.semiclass import check_semiclass_config
 
         check_semiclass_config(cfg)  # before any device set-up
-    if cfg.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir needs utils/profiling.py, which is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
     for f in (cfg.train_img_txt, cfg.train_coord_txt):
         if not os.path.exists(os.path.join(cfg.data_dir, f)):
             raise FileNotFoundError(os.path.join(cfg.data_dir, f))
@@ -246,9 +273,224 @@ def cmd_embed(argv):
     print(f"saved {save_embeddings(cfg, result)}")
 
 
+def cmd_watch(argv):
+    """Continuous picking service over a watched directory
+    (cet_pick_tpu/__main__.py:150-169, infer/watch.py)."""
+    parser = _parser("cet_pick_tpu_torch watch", Config(task="semi"))
+    parser.add_argument("--watch_dir", required=True,
+                        help="directory to poll for new .rec/.mrc volumes")
+    parser.add_argument("--poll", type=float, default=5.0,
+                        help="poll interval in seconds")
+    parser.add_argument("--once", action="store_true",
+                        help="drain the current backlog and exit")
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args)
+    if not cfg.load_model:
+        cfg.load_model = os.path.join(cfg.save_dir, "model_last.pth")
+    from cet_pick_tpu_torch.infer.watch import run_watch
+
+    run_watch(cfg, args.watch_dir, poll_s=args.poll, once=args.once,
+              device=args.device)
+
+
+def cmd_classify(argv):
+    """Voxel classifier training, task tcla
+    (cet_pick_tpu/__main__.py:299-313)."""
+    args = _parser("cet_pick_tpu_torch classify",
+                   Config(task="tcla", arch="unet_4", pn=True)
+                   ).parse_args(argv)
+    cfg = config_from_args(args)
+    for f in (cfg.train_img_txt, cfg.train_coord_txt):
+        if not os.path.exists(os.path.join(cfg.data_dir, f)):
+            raise FileNotFoundError(os.path.join(cfg.data_dir, f))
+    from cet_pick_tpu_torch.data.refine_dataset import RefineDataset
+    from cet_pick_tpu_torch.infer.detector import set_float32_precision
+    from cet_pick_tpu_torch.train.classify import train_classify
+    from cet_pick_tpu_torch.train.refine import prepare_refine
+    from cet_pick_tpu_torch.utils.logger import Logger
+
+    set_float32_precision(cfg.dtype)
+    prepared = prepare_refine(cfg, device=args.device)  # fails fast
+    logger = Logger(cfg)
+    dataset = RefineDataset(cfg, "train")
+    train_classify(cfg, dataset, log_fn=logger.log, prepared=prepared)
+    logger.close()
+
+
+def cmd_merge(argv):
+    """Per-tomogram pick txts -> one table (cet_pick_tpu/__main__.py:
+    662-669)."""
+    parser = _host_parser("cet_pick_tpu_torch merge")
+    parser.add_argument("--path", required=True)
+    parser.add_argument("--out", required=True)
+    a = parser.parse_args(argv)
+    from cet_pick_tpu_torch.eval.metrics import merge_output
+
+    print(merge_output(a.path, a.out))
+
+
+def cmd_pr_curve(argv):
+    """Precision-recall of picks against targets
+    (cet_pick_tpu/__main__.py:672-692); the tables are read and written
+    without pandas, the PR table as pandas writes it."""
+    parser = _host_parser("cet_pick_tpu_torch pr-curve")
+    parser.add_argument("--predicted", required=True)
+    parser.add_argument("--targets", required=True)
+    parser.add_argument("-r", "--assignment-radius", type=int, required=True)
+    parser.add_argument("--images", choices=["target", "predicted", "union"],
+                        default="target")
+    parser.add_argument("--out", default=None, help="PR table tsv")
+    a = parser.parse_args(argv)
+    from cet_pick_tpu_torch.eval.metrics import (
+        evaluate_detections,
+        write_pr_table,
+    )
+    from cet_pick_tpu_torch.io.coords import read_coord_table
+
+    targets = read_coord_table(a.targets)
+    predicts = read_coord_table(a.predicted, comment="#")
+    res = evaluate_detections(targets, predicts, a.assignment_radius,
+                              images=a.images)
+    print(f"# auprc={res['auprc']}, mae={res['mae']}")
+    print(f"# best_f1={res['best_f1']}")
+    if a.out:
+        write_pr_table(a.out, res["table"])
+
+
+def cmd_remove_golds(argv):
+    """Drop picks near fiducial gold beads (cet_pick_tpu/__main__.py:
+    695-720)."""
+    parser = _host_parser("cet_pick_tpu_torch remove-golds")
+    parser.add_argument("--path", required=True, help="dir of detection txts")
+    parser.add_argument("--gold", required=True,
+                        help="dir of *_gold3d.txt files")
+    parser.add_argument("--r", type=float, default=20.0)
+    parser.add_argument("--out", required=True)
+    a = parser.parse_args(argv)
+    import numpy as np
+
+    from cet_pick_tpu_torch.eval.metrics import remove_golds
+
+    os.makedirs(a.out, exist_ok=True)
+    for p in glob.glob(os.path.join(a.path, "*.txt")):
+        name = os.path.basename(p).split(".")[0]
+        gold_path = os.path.join(a.gold, name + "_gold3d.txt")
+        if not os.path.exists(gold_path):
+            continue
+        kept = remove_golds(np.loadtxt(p, ndmin=2),
+                            np.loadtxt(gold_path, ndmin=2), radius=a.r)
+        with open(os.path.join(a.out, name + ".txt"), "w") as f:
+            for row in kept:
+                f.write("\t".join(str(int(v)) for v in row) + "\n")
+
+
+def cmd_gen_files(argv):
+    """A directory of volumes + coordinate txts -> train/test lists
+    (cet_pick_tpu/__main__.py:723-768, utils/generate_train_file.py:17-73)."""
+    parser = _host_parser("cet_pick_tpu_torch gen-files")
+    parser.add_argument("--dir", required=True)
+    parser.add_argument("--out", required=True, help="output prefix")
+    parser.add_argument("--ext", default=".rec")
+    parser.add_argument("--ord", choices=["xzy", "xyz", "zxy"], default="xzy")
+    parser.add_argument("--inference", action="store_true")
+    parser.add_argument("--img_only", action="store_true")
+    a = parser.parse_args(argv)
+    suffix = "_test_imgs.txt" if a.inference else "_train_imgs.txt"
+    img_file = os.path.join(a.dir, a.out + suffix)
+    with open(img_file, "w") as f1:
+        f1.write("image_name\trec_path\n")
+        for path in glob.glob(os.path.join(a.dir, "*" + a.ext)):
+            f1.write(f"{os.path.basename(path)[: -len(a.ext)]}\t{path}\n")
+    print(img_file)
+    if a.img_only or a.inference:
+        return
+    coord_file = os.path.join(a.dir, a.out + "_train_coords.txt")
+    with open(coord_file, "w") as f2:
+        f2.write("image_name\tx_coord\ty_coord\tz_coord\n")
+        for path in glob.glob(os.path.join(a.dir, "*.txt")):
+            name = os.path.basename(path)[:-4]
+            if name.endswith(("train_imgs", "train_coords", "test_imgs")):
+                continue
+            with open(path) as f:
+                for line in f:
+                    parts = line.split()
+                    if len(parts) < 3:
+                        continue
+                    vals = [int(float(v)) for v in parts[:3]]
+                    if a.ord == "xzy":
+                        x, z, y = vals
+                    elif a.ord == "xyz":
+                        x, y, z = vals
+                    else:  # zxy
+                        z, x, y = vals
+                    f2.write(f"{name}\t{x}\t{y}\t{z}\n")
+    print(coord_file)
+
+
+def cmd_flags(argv):
+    """The flag reference page (cet_pick_tpu/__main__.py:1032-1045) of the
+    port's Config and help, printed or written to ``--out``."""
+    parser = _host_parser("cet_pick_tpu_torch flags")
+    parser.add_argument("--out", default=None,
+                        help="write the markdown here instead of stdout")
+    a = parser.parse_args(argv)
+    from cet_pick_tpu_torch.cli.common import flags_markdown
+
+    md = flags_markdown()
+    if a.out:
+        with open(a.out, "w") as f:
+            f.write(md)
+        print(f"wrote {a.out}")
+    else:
+        print(md)
+
+
+def cmd_doctor(argv):
+    """Health check for deployments (cet_pick_tpu/__main__.py:991-1029):
+    one JSON line; exit 1 when unhealthy, so that a scheduler can gate a
+    ``watch`` service or a training job on it."""
+    parser = argparse.ArgumentParser(prog="cet_pick_tpu_torch doctor")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="device to check (default: cuda)")
+    parser.add_argument("--no-probe", action="store_true",
+                        help="accepted for the JAX command's flag: the port "
+                             "has no tunnel to probe")
+    parser.add_argument("--empiar", default=None, metavar="DIR",
+                        help="run the EMPIAR tutorial validation (train -> "
+                             "test -> pr-curve) on a dataset directory in "
+                             "the tutorial layout "
+                             "(docs/empiar_validation.md)")
+    parser.add_argument("--recipe", default="globular",
+                        choices=("globular", "tubular"),
+                        help="EMPIAR tutorial recipe (with --empiar)")
+    parser.add_argument("--num_epochs", type=int, default=None,
+                        help="override the recipe's training epochs "
+                             "(with --empiar)")
+    parser.add_argument("--f1_target", type=float, default=None,
+                        help="gate: exit 1 if best F1 falls below this "
+                             "(with --empiar)")
+    a = parser.parse_args(argv)
+    if a.empiar:
+        from cet_pick_tpu_torch.utils.empiar import run_empiar_validation
+
+        report = run_empiar_validation(
+            a.empiar, recipe=a.recipe, num_epochs=a.num_epochs,
+            f1_target=a.f1_target, device=a.device)
+        print(json.dumps(report))
+        return 0 if report.get("pass", True) else 1
+    from cet_pick_tpu_torch.utils.health import diagnostics
+
+    report = diagnostics(device=a.device)
+    print(json.dumps(report))
+    return 0 if report["healthy"] else 1
+
+
 COMMANDS = {"train": cmd_train, "test": cmd_test,
-            "classify-test": cmd_classify_test, "explore": cmd_explore,
-            "embed": cmd_embed}
+            "classify-test": cmd_classify_test, "watch": cmd_watch,
+            "explore": cmd_explore, "classify": cmd_classify,
+            "embed": cmd_embed, "merge": cmd_merge, "pr-curve": cmd_pr_curve,
+            "remove-golds": cmd_remove_golds, "gen-files": cmd_gen_files,
+            "flags": cmd_flags, "doctor": cmd_doctor}
 
 
 def main(argv=None):

@@ -1,5 +1,6 @@
 """Argparse <-> Config bridge — a copy of ``cet_pick_tpu/cli/common.py``
-(``add_config_arguments``, ``config_from_args`` and the per-flag help).
+(``add_config_arguments``, ``config_from_args``, the per-flag help and the
+``flags`` page).
 
 Flags are generated straight from the Config dataclass fields — the
 reference's flag names (reference: cet_pick/opts.py:17-189), one source of
@@ -38,8 +39,10 @@ FLAG_GROUPS = (
         "resume": "resume training from `model_last` in the experiment dir "
                   "(restores optimizer state, epoch, and best-val tracking)",
         "root_dir": "root of the experiment tree",
-        "profile_dir": "profiler traces of train/test steps (not yet "
-                       "ported: the port raises when it is set)",
+        "profile_dir": "write torch.profiler Chrome traces here: the whole "
+                       "`test` run, the first epoch that `train --task "
+                       "semi|semi3d` runs (host activity, and the card's "
+                       "kernels on CUDA)",
         "seed": "RNG seed for initialization and data sampling",
         "num_workers": "accepted for reference parity (torch DataLoader "
                        "workers); prefetch here is a single producer thread",
@@ -187,6 +190,39 @@ def add_config_arguments(parser: argparse.ArgumentParser,
         else:
             parser.add_argument(flag, type=str, default=default, help=help_)
     return parser
+
+
+def flags_markdown() -> str:
+    """The port's flag reference page, generated from FLAG_GROUPS + Config
+    defaults (common.py:199-230); ``python -m cet_pick_tpu_torch flags``
+    prints it or writes it to ``--out``."""
+    cfg = Config()
+    lines = [
+        "# Flag reference (cet_pick_tpu_torch)",
+        "",
+        "Every flag below is accepted by every command of",
+        "`python -m cet_pick_tpu_torch` that takes a config (`train`, `test`,",
+        "`watch`, `classify`, `classify-test`, `explore`, `embed`); commands",
+        "read the subset relevant to them, and the parsed config is written",
+        "as `opt.json` beside every checkpoint. Flag names and defaults are",
+        "the JAX package's (`cet_pick_tpu/config.py`), which match the",
+        "reference's `opts.py`. The port's commands also take `--device",
+        "{cuda,cpu}` (default cuda).",
+        "",
+        "Boolean flags take `--flag` / `--no-flag` forms. This page is",
+        "generated from `cet_pick_tpu_torch/config.py` and",
+        "`cet_pick_tpu_torch/cli/common.py`.",
+    ]
+    for title, group in FLAG_GROUPS:
+        lines += ["", f"## {title}", "", "| Flag | Default | Description |",
+                  "|---|---|---|"]
+        for name, help_ in group.items():
+            default = getattr(cfg, name)
+            shown = "(empty)" if default == "" else f"`{default}`"
+            desc = help_.replace("|", "\\|").replace("\\t", "\\\\t")
+            lines.append(f"| `--{name}` | {shown} | {desc} |")
+    lines.append("")
+    return "\n".join(lines)
 
 
 def config_from_args(args: argparse.Namespace) -> Config:

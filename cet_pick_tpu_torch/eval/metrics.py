@@ -1,5 +1,5 @@
 """Precision-recall curve + dataset-level evaluation — port of
-``cet_pick_tpu/eval/metrics.py:24-123`` without pandas.
+``cet_pick_tpu/eval/metrics.py`` without pandas.
 
 ``precision_recall_curve`` mirrors reference
 cet_pick/evaluation/metrics.py:6-46: predictions sorted by descending score,
@@ -12,13 +12,20 @@ an assignment radius, concatenation over the image list, PR curve, F1 per
 threshold, and the running-mean MAE of matched distances (its formula copied
 as it is). Tables are dicts of columns: ``image_name``, ``x_coord``,
 ``y_coord``, ``z_coord`` and, for predictions, optionally ``score``.
+``write_pr_table`` writes the PR table as pandas' ``to_csv(sep="\\t",
+index=False)`` does; ``merge_output`` and ``remove_golds`` are the host
+tools behind the ``merge`` and ``remove-golds`` commands.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import glob
+import math
+import os
+from typing import Dict, Iterable, Optional
 
 import numpy as np
+from scipy import spatial
 
 from cet_pick_tpu_torch.eval.matching import match_coordinates
 
@@ -125,3 +132,59 @@ def evaluate_detections(targets: Dict, predicts: Dict, radius: float,
         "n_targets": n,
         "n_predictions": len(scores),
     }
+
+
+def _csv_field(v) -> str:
+    """One value as pandas' ``to_csv`` writes it: the shortest repr of a
+    float (``repr``), nothing for NaN."""
+    if isinstance(v, (float, np.floating)):
+        return "" if math.isnan(v) else repr(float(v))
+    return str(v)
+
+
+def write_pr_table(path: str, table: Dict):
+    """The PR table (``evaluate_detections``' ``table``) as a tab-separated
+    file, byte for byte ``pd.DataFrame(table).to_csv(path, sep="\\t",
+    index=False)`` (metrics.py:109-113, __main__.py:658-659)."""
+    cols = list(table)
+    n = len(table[cols[0]]) if cols else 0
+    with open(path, "w") as f:
+        f.write("\t".join(cols) + "\n")
+        for i in range(n):
+            f.write("\t".join(_csv_field(table[c][i]) for c in cols) + "\n")
+
+
+def merge_output(path: str, out_name: str,
+                 txts: Optional[Iterable[str]] = None):
+    """Merge per-tomogram detection txts into one table
+    ``image_name x_coord z_coord y_coord score`` (metrics.py:126-147,
+    merge_output.py:14-35).
+
+    The reference skips each file's first line (a header assumption);
+    kept for drop-in compatibility.
+    """
+    if txts is None:
+        txts = sorted(glob.glob(os.path.join(path, "*.txt")))
+    out_file = os.path.join(path, out_name)
+    with open(out_file, "w") as out:
+        out.write("image_name\tx_coord\tz_coord\ty_coord\tscore\n")
+        for f in txts:
+            name = os.path.basename(f)[:-4]
+            with open(f) as dets:
+                for i, line in enumerate(dets):
+                    if i > 0:
+                        out.write("\t".join([name] + line.split()) + "\n")
+    return out_file
+
+
+def remove_golds(pred_coords: np.ndarray, gold_coords: np.ndarray,
+                 radius: float = 20.0) -> np.ndarray:
+    """Drop predictions within ``radius`` of any fiducial gold bead
+    (metrics.py:150-162, remove_golds.py:14-61, which hardcodes 20)."""
+    pred_coords = np.asarray(pred_coords, dtype=np.float64)
+    gold_coords = np.asarray(gold_coords, dtype=np.float64)
+    if len(pred_coords) == 0 or len(gold_coords) == 0:
+        return pred_coords
+    dist = spatial.distance.cdist(pred_coords[:, :3], gold_coords[:, :3])
+    keep = np.min(dist, axis=1) > radius
+    return pred_coords[keep]

@@ -47,6 +47,7 @@ from cet_pick_tpu_torch.utils.post_process import (
     group_dets_by_z,
     spike_group_postprocess,
 )
+from cet_pick_tpu_torch.utils.profiling import annotate, maybe_trace
 
 
 def resolve_device(device) -> torch.device:
@@ -264,7 +265,8 @@ def write_detection_outputs(cfg, hm: Optional[np.ndarray], rows, path: str,
     return lines
 
 
-def stream_quantized_volumes(config, names, paths, device, depth: int = 2):
+def stream_quantized_volumes(config, names, paths, device, depth: int = 2,
+                             isolate_errors: bool = False):
     """Disk -> quantize -> device pipeline over a volume list.
 
     A producer thread reads + preprocesses tomogram i+1 while tomogram i
@@ -272,24 +274,47 @@ def stream_quantized_volumes(config, names, paths, device, depth: int = 2):
     with an asynchronous pinned copy (data/prefetch.py). Yields
     ``(name, device_volume_u8, lo, hi)``; use as a context manager so an
     early exit releases the producer thread. A load failure ends the
-    stream with that error.
+    stream with that error: what ``test`` wants for a fixed list.
+    ``isolate_errors=True`` (the ``watch`` service, which must outlive one
+    corrupt volume) instead yields ``(name, device_volume_u8 | None, lo,
+    hi, exc | None)`` for every input, in input order: a failed load gives
+    ``(name, None, 0.0, 0.0, exc)`` (detector.py:290-338). Only host-side
+    failures are isolated so: an error of the card itself (a sticky CUDA
+    error) ends the stream.
     """
     def produce():
         for name, path in zip(names, paths):
-            vol = load_rec(path, order=config.order, compress=config.compress)
-            u8, lo, hi = preprocess_quantized(vol, denoise=config.gauss)
-            yield name, u8, lo, hi
+            try:
+                vol = load_rec(path, order=config.order,
+                               compress=config.compress)
+                u8, lo, hi = preprocess_quantized(vol, denoise=config.gauss)
+            except Exception as e:  # noqa: BLE001 — recorded per file
+                if not isolate_errors:
+                    raise
+                yield name, None, 0.0, 0.0, e
+                continue
+            yield (name, u8, lo, hi, None) if isolate_errors else (
+                name, u8, lo, hi)
 
     return PrefetchIterator(produce(), depth=depth, device=device)
 
 
 def warm_from_header(det, rec_paths, config):
     """Warm ``det``'s device pipeline for volume 0's geometry (a 1 KB MRC
-    header read) while the producer thread is still loading its data."""
+    header read) while the producer thread is still loading its data.
+    Only an optimization: a failure (an unreadable header, absurd dims
+    from a corrupt file, an allocation a bogus geometry cannot get) is
+    dropped, as JAX drops it (detector.py:341-361), so that the stream's
+    loader reports its own per-file error; a fault of the device path shows
+    again on the first volume."""
     paths = list(rec_paths)
-    if paths:
+    if not paths:
+        return
+    try:
         det.warm(predict_loaded_shape(paths[0], order=config.order,
                                       compress=config.compress))
+    except Exception:  # noqa: BLE001 — the loader reports it
+        pass
 
 
 def run_test(config, out_dir=None, device="cuda"):
@@ -297,11 +322,8 @@ def run_test(config, out_dir=None, device="cuda"):
     (reference cet_pick/test.py:65-93), pipelined at both ends: the producer
     thread overlaps tomogram i+1's load + device copy with tomogram i's
     forward, and a writer thread overlaps tomogram i-1's heatmap fetch +
-    post-process + file writes with it too. Returns {name: stage times}."""
-    if config.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir needs utils/profiling.py, which is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+    post-process + file writes with it too. ``--profile_dir`` traces the
+    whole run (detector.py:374-401). Returns {name: stage times}."""
     set_float32_precision(config.dtype)
     il = read_image_list(os.path.join(config.data_dir, config.test_img_txt))
     det = TomoDetector(config, device=device)
@@ -328,12 +350,14 @@ def run_test(config, out_dir=None, device="cuda"):
     w = threading.Thread(target=writer, daemon=True)
     w.start()
     try:
-        with stream_quantized_volumes(
-            config, il["image_name"], il["rec_path"], det.device
-        ) as vols:
+        with maybe_trace(config.profile_dir, det.device.type == "cuda"), \
+                stream_quantized_volumes(config, il["image_name"],
+                                         il["rec_path"], det.device) as vols:
             warm_from_header(det, il["rec_path"], config)
             for name, v_dev, lo, hi in vols:
-                hm_dev, dets, t0, t_net = det._compute(v_dev, lo=lo, hi=hi)
+                with annotate(f"volume {name}"):
+                    hm_dev, dets, t0, t_net = det._compute(v_dev, lo=lo,
+                                                           hi=hi)
                 q.put((name, hm_dev, dets, t0, t_net))
                 if errs:
                     break

@@ -24,12 +24,18 @@ _XYZ = ("x_coord", "y_coord", "z_coord")
 _STRING_COLUMNS = ("image_name", "source")
 
 
-def _read_table(path) -> Dict[str, List[str]]:
+def _read_table(path, comment=None) -> Dict[str, List[str]]:
+    """Columns of a tab-separated table; a short row's missing fields read
+    as empty. ``comment``: a character that ends every line where it
+    stands, as pandas' ``comment=`` does (a line left empty is skipped)."""
     with open(path, newline="") as f:
-        reader = csv.reader(f, delimiter="\t")
+        lines = (line.split(comment, 1)[0] if comment else line
+                 for line in f)
+        reader = csv.reader(lines, delimiter="\t")
         header = next(reader)
         rows = [r for r in reader if r]  # blank lines skipped, like pandas
-    return {name: [r[i] for r in rows] for i, name in enumerate(header)}
+    return {name: [r[i] if i < len(r) else "" for r in rows]
+            for i, name in enumerate(header)}
 
 
 def read_image_list(path) -> Dict[str, List[str]]:
@@ -42,19 +48,22 @@ def read_image_list(path) -> Dict[str, List[str]]:
 
 
 def _parse_number(text):
+    if text == "":
+        return float("nan")  # a missing field, as pandas reads it
     try:
         return int(text)
     except ValueError:
         return float(text)
 
 
-def read_coord_table(path) -> Dict[str, list]:
+def read_coord_table(path, comment=None) -> Dict[str, list]:
     """Read a tab-separated coordinate table (coords.py:26-28).
 
     ``image_name`` (and ``source``) stay strings; every other column parses
     as numbers: ints where the text is an integer, as ``pd.read_csv`` gives
-    the coordinates."""
-    table = _read_table(path)
+    the coordinates. ``comment``: as pandas' (the ``pr-curve`` command reads
+    predictions with ``#``)."""
+    table = _read_table(path, comment)
     return {k: (v if k in _STRING_COLUMNS else [_parse_number(x) for x in v])
             for k, v in table.items()}
 

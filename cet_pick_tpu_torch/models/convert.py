@@ -32,6 +32,11 @@ from typing import Dict
 import numpy as np
 import torch
 
+from cet_pick_tpu_torch.io.flax_msgpack import (
+    is_checkpoint_dir,
+    read_checkpoint,
+)
+
 
 def _get(tree, path):
     node = tree
@@ -189,28 +194,60 @@ def is_res3d_format(state_dict) -> bool:
                for k, v in state_dict.items())
 
 
+# the per-task output heads a JAX detector's parameter tree may hold
+# (config._TASK_HEADS)
+_HEADS = ("hm", "proj", "class")
+
+
+def state_dict_from_jax_tree(params, batch_stats) -> Dict[str, torch.Tensor]:
+    """The port's state dict of any JAX detector or exploration encoder,
+    its family, depth and heads read from the parameter tree: an encoder has
+    ``trunk``; a ``unet_N`` / ``unetw_N`` has ``unet/down0..N-1``, a
+    ``TomoPickNet3D`` ``block0..N-1``."""
+    if "trunk" in params:
+        return simsiam_state_dict_from_jax(params, batch_stats)
+    heads = [h for h in _HEADS if h in params]
+    if "unet" in params:
+        n_blocks = sum(k.startswith("down") for k in params["unet"])
+    else:
+        n_blocks = sum(k.startswith("block") for k in params)
+    return state_dict_from_jax(params, batch_stats, n_blocks, heads)
+
+
+def read_any_checkpoint(path: str):
+    """(state dict, payload) of a checkpoint: a JAX checkpoint directory
+    (payload: its restored ``state.msgpack``, ``io/flax_msgpack.py``, which
+    holds ``params``) or a ``.pth`` / ``.pt`` file (payload: what
+    ``torch.load`` gives). The state dict is the port's, on the CPU, with
+    ``normalize_state_dict`` applied."""
+    if is_checkpoint_dir(path):
+        payload = read_checkpoint(path)
+        raw = state_dict_from_jax_tree(payload["params"],
+                                       payload.get("batch_stats") or {})
+    elif path.endswith((".pth", ".pt")):
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        raw = payload.get("state_dict", payload)
+    else:
+        raise ValueError(
+            f"--load_model {path!r}: neither a .pth checkpoint nor a JAX "
+            f"checkpoint directory (a directory holding state.msgpack)")
+    return normalize_state_dict(raw), payload
+
+
 def load_checkpoint(path: str, arch=None) -> Dict[str, torch.Tensor]:
-    """A reference ``model_N.pth`` (``{'epoch', 'state_dict', ...}``) or the
-    JAX package's ``export-torch`` output (same payload), or a bare state
-    dict -> the port's state dict, on the CPU.
+    """A reference ``model_N.pth`` (``{'epoch', 'state_dict', ...}``), the
+    port's own or the JAX package's ``export-torch`` output (same payload),
+    a bare state dict, or a JAX checkpoint directory (``state.msgpack``) ->
+    the port's state dict, on the CPU.
 
     ``module.`` prefixes (DataParallel) are stripped, and BatchNorm
     ``num_batches_tracked`` buffers that the file lacks (``export-torch``
     writes none) are added as 0, so the result loads with ``strict=True``.
-    JAX checkpoint directories (flax msgpack) are not read here: convert
-    them with ``python -m cet_pick_tpu export-torch``. With ``arch``, a
-    reference res3d (semi3d) checkpoint is accepted for ``res3dref_N``
-    only, and ``res3dref_N`` accepts nothing else, as
+    With ``arch``, a reference res3d (semi3d) checkpoint is accepted for
+    ``res3dref_N`` only, and ``res3dref_N`` accepts nothing else, as
     ``load_reference_checkpoint`` does (convert.py:704-727).
     """
-    if not path.endswith((".pth", ".pt")):
-        raise ValueError(
-            f"--load_model {path!r}: the port loads .pth checkpoints only. "
-            f"Convert a JAX checkpoint directory with `python -m cet_pick_tpu "
-            f"export-torch --load_model DIR --out model.pth`, or pass a "
-            f"reference model_N.pth")
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = normalize_state_dict(ckpt.get("state_dict", ckpt))
+    sd = read_any_checkpoint(path)[0]
     if arch is not None:
         res3d = is_res3d_format(sd)
         if arch.startswith("res3dref") and not res3d:
@@ -280,15 +317,12 @@ def simsiam_state_dict_from_jax(params, batch_stats
 def load_simsiam_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """A reference exploration ``.pth`` (``TomoResClassifier2D3D`` / ``2D``,
     the inverse of JAX's ``simsiam_state_dict_to_flax``, convert.py:107-153)
-    or the port's own ``model_last.pth`` -> the state dict for
-    ``SimSiamEncoder``'s strict load, ``module.`` prefixes stripped. The
-    reference's MoCo / SCAN wrappers and the torchvision ImageNet trunk
-    init (``load_simsiam_torch``, convert.py:348-404) are not ported yet."""
-    if not path.endswith((".pth", ".pt")):
-        raise ValueError(
-            f"--load_model {path!r}: the port loads .pth checkpoints only")
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = normalize_state_dict(ckpt.get("state_dict", ckpt))
+    or the port's own ``model_last.pth``, or a JAX checkpoint directory ->
+    the state dict for ``SimSiamEncoder``'s strict load, ``module.``
+    prefixes stripped. The reference's MoCo / SCAN wrappers and the
+    torchvision ImageNet trunk init (``load_simsiam_torch``,
+    convert.py:348-404) are not ported yet."""
+    sd = read_any_checkpoint(path)[0]
     if "proj.0.weight" not in sd:
         raise ValueError(
             f"{path} is not an exploration encoder checkpoint (no proj "

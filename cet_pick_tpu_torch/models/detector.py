@@ -30,13 +30,13 @@ channels-last, which is what the z-tap kernel takes. The public
 
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cet_pick_tpu_torch.models.flax_init import flax_init_, lecun_normal_
 from cet_pick_tpu_torch.models.unet import BatchNorm2d, UNet2D
 from cet_pick_tpu_torch.ops.ztap_conv import (
     ztap_dilated_conv,
@@ -67,7 +67,7 @@ class _ZTapDilatedConv(nn.Module):
         self.dilation = dilation
         self.weight = nn.Parameter(
             torch.empty(features, in_features, 3, 3, 3))
-        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))  # Conv3d's init
+        lecun_normal_(self.weight, 27 * in_features)  # flax's, as JAX's
 
     def kernel(self):
         return self.weight.permute(2, 3, 4, 1, 0).contiguous()
@@ -159,6 +159,7 @@ class TomoPickNet(_Detector):
                            in_channels=stem_features)
         self.feature_head = FeatureHead3D(32, head_conv)
         self._add_heads(heads, head_conv)
+        flax_init_(self)
 
     def _stem(self, x):
         return self.bn1(self.conv1(x))
@@ -210,6 +211,7 @@ class TomoPickNetW(_Detector):
                            in_channels=width)
         self.feature_head = FeatureHead3D(width, head_conv)
         self._add_heads(heads, head_conv)
+        flax_init_(self)
 
     def _stem(self, x):
         return self.stem_bn(self.stem(x))

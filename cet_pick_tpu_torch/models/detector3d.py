@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cet_pick_tpu_torch.models.detector import FeatureHead3D, _Detector
+from cet_pick_tpu_torch.models.flax_init import flax_init_
 
 GN_EPS = 1e-6  # flax nn.GroupNorm's default
 
@@ -93,6 +94,7 @@ class TomoPickNet3D(_Detector):
         self.blocks = nn.ModuleList(blocks)
         self.context = FeatureHead3D(32, head_conv)
         self._add_heads(heads, head_conv)
+        flax_init_(self)
 
     def forward(self, x, active_heads=None):
         """x: (B, D, H, W) -> {head: (B, D, H', W', C)}."""

@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cet_pick_tpu_torch.models.flax_init import flax_init_
+
 
 class RefBasicBlock3D(nn.Module):
     """Norm-free 3D basic block (resnet_3d_small.py:68-97)."""
@@ -88,10 +90,12 @@ class TomoRes3DRefNet(nn.Module):
         self.feature_head = nn.Sequential(nn.Conv3d(32, 16, 3, padding=1),
                                           nn.ReLU(inplace=True))
         for head, classes in self.heads.items():
-            conv = nn.Conv3d(16, classes, 1)
-            with torch.no_grad():
-                conv.bias.fill_(-2.19 if "hm" in head else 0.0)
-            self.add_module(head, conv)
+            self.add_module(head, nn.Conv3d(16, classes, 1))
+        flax_init_(self)
+        with torch.no_grad():
+            for head in self.heads:
+                if "hm" in head:
+                    self._modules[head].bias.fill_(-2.19)
 
     def forward(self, x, active_heads=None):
         """x: (B, D, H, W) -> {head: (B, D/2, H/2, W/2, C)}."""

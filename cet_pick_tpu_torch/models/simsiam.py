@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cet_pick_tpu_torch.models.flax_init import flax_init_
 from cet_pick_tpu_torch.models.unet import BatchNorm2d
 
 
@@ -135,6 +136,7 @@ class SimSiamEncoder(nn.Module):
         self.pred = nn.Sequential(
             nn.Linear(d, d, bias=False), BatchNorm1d(d), nn.ReLU(),
             nn.Linear(d, d))
+        flax_init_(self)
 
     def trunk(self, x):
         """(B, 1, H, W) -> pooled (B, 256) (``ResNetTrunk``, simsiam.py:68-89)."""

@@ -45,6 +45,7 @@ from cet_pick_tpu_torch.train.state import (
     load_checkpoint,
     set_learning_rate,
 )
+from cet_pick_tpu_torch.utils.profiling import maybe_trace
 
 
 def unflip_aug(x, flip_prob):
@@ -172,16 +173,18 @@ def lr_at_epoch(config, epoch):
     return lr
 
 
-def prepare_refine(config, log_fn=print, device="cuda"):
+def prepare_refine(config, log_fn=print, device="cuda", freeze=()):
     """Model, train state and checkpoint load (refine.py:246-291): the
-    detector initialized from ``config.seed``, Adam, and ``--load_model``
-    (with ``--resume``, the optimizer and epoch too)."""
+    detector initialized from ``config.seed``, Adam (``freeze``: top-level
+    modules left out of it, ``train/state.TrainState``), and
+    ``--load_model``, a ``.pth`` or a JAX checkpoint directory (with
+    ``--resume``, the optimizer and epoch too)."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(config.seed)
         model = create_detector(config)
     model.to(device)
-    state = TrainState(model, config.lr)
+    state = TrainState(model, config.lr, freeze=freeze)
     if config.load_model:
         load_checkpoint(config.load_model, state, resume=config.resume)
         log_fn(f"loaded checkpoint from {config.load_model} "
@@ -190,18 +193,21 @@ def prepare_refine(config, log_fn=print, device="cuda"):
 
 
 def run_epoch(train_step, state, dataset, rng, config, epoch, device,
-              log_fn=print, check=None, lr=None):
+              log_fn=print, check=None, lr=None, num_iters=True,
+              profile_dir=None):
     """One epoch of ``train_step`` over ``dataset.epoch_batches``, shared by
     the refinement, supervised and exploration loops (refine.py:308-420,
     supervised.py:238-270, explore.py:243-342): the epoch's learning rate
     (``lr``, else the step decay's), the ``--num_iters``
-    cap, batches built and copied to the device by a producer thread, and
-    metrics read one step late (train/metrics.py); ``check`` sees each
-    step's metrics as they arrive. Logs and returns the epoch's means, and
-    logs the samples/s of the steps after the first."""
+    cap (``num_iters=False``: none, as tcla's loop has none), batches built
+    and copied to the device by a producer thread, and metrics read one
+    step late (train/metrics.py); ``check`` sees each step's metrics as
+    they arrive. ``profile_dir``: trace the epoch there
+    (``utils/profiling.maybe_trace``). Logs and returns the epoch's means,
+    and logs the samples/s of the steps after the first."""
     set_learning_rate(state, lr_at_epoch(config, epoch) if lr is None else lr)
     epoch_metrics = []
-    cap = config.num_iters if config.num_iters >= 0 else None
+    cap = config.num_iters if num_iters and config.num_iters >= 0 else None
     drain = LaggedMetrics()
 
     def collect(m):
@@ -211,8 +217,9 @@ def run_epoch(train_step, state, dataset, rng, config, epoch, device,
             epoch_metrics.append(m)
 
     t_first = None  # host clock when step 1 had finished
-    with PrefetchIterator(dataset.epoch_batches(rng, config.batch_size),
-                          device=device) as batches:
+    with maybe_trace(profile_dir, cuda=torch.device(device).type == "cuda"), \
+            PrefetchIterator(dataset.epoch_batches(rng, config.batch_size),
+                             device=device) as batches:
         for batch in itertools.islice(batches, cap):
             collect(drain.push(train_step(state, batch)))
             if t_first is None:
@@ -275,8 +282,13 @@ def train_refine(config, dataset, val_dataset=None, num_epochs=None,
     best_val = _load_best_val(config.save_dir) if config.resume else float("inf")
     with AsyncCheckpointer() as ckpt:
         for epoch in range(start_epoch, num_epochs + 1):
-            history.append(run_epoch(train_step, state, dataset, rng, config,
-                                     epoch, device, log_fn, check_positives))
+            # --profile_dir: the first epoch of the run (after a resume, the
+            # first one it trains), as JAX traces it (refine.py:349-377)
+            history.append(run_epoch(
+                train_step, state, dataset, rng, config, epoch, device, log_fn,
+                check_positives,
+                profile_dir=config.profile_dir if epoch == start_epoch
+                else None))
             snap = ckpt.save(os.path.join(config.save_dir, "model_last.pth"),
                              checkpoint_payload(state), config)
             if config.val_intervals > 0 and epoch % config.val_intervals == 0:

@@ -12,7 +12,9 @@ package loads what the port writes.
 ``load_checkpoint`` keeps the tolerant semantics of ``_merge_tolerant``
 (state.py:262-283): a parameter whose shape mismatches the model, or that
 the file lacks, keeps its initial value with a message; ``resume=True``
-also restores the optimizer and the epoch (state.py:316-332).
+also restores the optimizer and the epoch (state.py:316-332). It reads the
+port's ``.pth`` and the JAX package's checkpoint directories
+(``state.msgpack``), whose optax Adam moments map onto torch's Adam state.
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ import threading
 import numpy as np
 import torch
 
-from cet_pick_tpu_torch.models.convert import normalize_state_dict
+from cet_pick_tpu_torch.models.convert import (
+    read_any_checkpoint,
+    state_dict_from_jax_tree,
+)
 
 
 # optax keeps Adam's decay rates in float32, so its second moment decays
@@ -35,18 +40,42 @@ ADAM_BETAS = (float(np.float32(0.9)), float(np.float32(0.999)))
 
 
 class TrainState:
-    """Model + optimizer over all its parameters + counters (JAX
+    """Model + optimizer over its trained parameters + counters (JAX
     ``TrainState`` and ``create_train_state``, state.py:27-90). The
     optimizer is Adam unless the caller passes its own (exploration's plain
-    SGD, train/explore.py)."""
+    SGD, train/explore.py).
 
-    def __init__(self, model, lr: float, optimizer=None):
+    ``freeze``: top-level module names (``("hm",)``) whose parameters are
+    not trained — the sequential fine-tune that freezes the ``hm`` head
+    (reference main_seq.py:36-40). JAX zeroes their updates with
+    ``optax.multi_transform`` and ``set_to_zero`` (state.py:59-91); here
+    they stay out of the optimizer and need no gradient, so they stay
+    bit-identical."""
+
+    def __init__(self, model, lr: float, optimizer=None, freeze=()):
         self.model = model
+        self.freeze = tuple(freeze)
+        unknown = set(self.freeze) - {n for n, _ in model.named_children()}
+        if unknown:
+            raise ValueError(f"freeze={self.freeze}: the model has no "
+                             f"top-level module {sorted(unknown)}")
+        for name, p in model.named_parameters():
+            if name.split(".")[0] in self.freeze:
+                p.requires_grad_(False)
         self.optimizer = optimizer if optimizer is not None else \
-            torch.optim.Adam(model.parameters(), lr=lr, betas=ADAM_BETAS,
-                             eps=1e-8)
+            torch.optim.Adam(self.trained_parameters(), lr=lr,
+                             betas=ADAM_BETAS, eps=1e-8)
         self.step = 0
         self.epoch = 0
+
+    def trained_named_parameters(self):
+        """(name, parameter) of every parameter the optimizer updates, in
+        the model's order."""
+        return [(n, p) for n, p in self.model.named_parameters()
+                if n.split(".")[0] not in self.freeze]
+
+    def trained_parameters(self):
+        return [p for _, p in self.trained_named_parameters()]
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:
@@ -61,9 +90,14 @@ def set_learning_rate(state: TrainState, lr: float) -> TrainState:
 # ---------------------------------------------------------------------------
 
 def checkpoint_payload(state: TrainState) -> dict:
-    """The reference ``.pth`` payload (live tensors; see snapshot)."""
-    return {"epoch": state.epoch, "state_dict": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict()}
+    """The reference ``.pth`` payload (live tensors; see snapshot); under
+    ``freeze`` also the frozen module names, which ``--resume`` holds to
+    the run's."""
+    payload = {"epoch": state.epoch, "state_dict": state.model.state_dict(),
+               "optimizer": state.optimizer.state_dict()}
+    if state.freeze:
+        payload["freeze"] = list(state.freeze)
+    return payload
 
 
 def _map_tensors(tree, fn):
@@ -185,26 +219,94 @@ def _merge_tolerant(target, loaded):
     return out
 
 
+def _resume_error(path, e):
+    """JAX's ``--resume`` error (state.py:316-327)."""
+    return ValueError(
+        "--resume requires the checkpoint's optimizer state to match the "
+        "current optimizer structure (same freeze=/lr setup); restoring "
+        f"opt_state from {path} failed: {e}. Load without --resume to "
+        "warm-start parameters only.")
+
+
+def _jax_optimizer_state(opt_state, freeze):
+    """The inner optimizer state of a JAX ``opt_state``
+    (``inject_hyperparams`` around Adam or SGD, inside ``multi_transform``
+    under ``freeze=``); raises where the tree is not one of those, or where
+    the top-level names it froze are not ``freeze``."""
+    frozen = ()
+    if "inner_states" in opt_state:  # multi_transform
+        opt_state = opt_state["inner_states"]["train"]["inner_state"]
+        mu = opt_state["inner_state"]["0"].get("mu", {})
+        frozen = tuple(sorted(k for k, v in mu.items() if v == {}))
+    if "inner_state" not in opt_state or "0" not in opt_state["inner_state"]:
+        raise KeyError("not an inject_hyperparams optimizer state")
+    if set(frozen) != set(freeze):
+        raise ValueError(f"the checkpoint froze {list(frozen)}, this run "
+                         f"freezes {list(freeze)}")
+    return opt_state["inner_state"]["0"]
+
+
+def _torch_state_of_jax(state: TrainState, payload):
+    """The torch optimizer ``state_dict`` of a JAX checkpoint's
+    ``opt_state``: optax Adam's ``mu`` / ``nu`` / ``count`` as ``exp_avg`` /
+    ``exp_avg_sq`` / ``step`` through the parameter mapping of
+    ``models/convert``; plain SGD has no state to carry."""
+    opt_state, params = payload["opt_state"], payload["params"]
+    batch_stats = payload.get("batch_stats") or {}
+    inner = _jax_optimizer_state(opt_state, state.freeze)
+    sd = state.optimizer.state_dict()
+    is_adam = isinstance(state.optimizer, torch.optim.Adam)
+    if is_adam != ("mu" in inner):
+        raise ValueError(f"the checkpoint's optimizer is not this run's "
+                         f"{type(state.optimizer).__name__}")
+    if not is_adam:
+        return sd
+    if len(sd["param_groups"]) != 1:
+        raise ValueError("one parameter group expected")
+
+    def moments(tree):
+        # a frozen subtree is empty: the parameters stand in for it, so
+        # that the mapping runs (the frozen ones are not kept)
+        full = {k: (v if v != {} else params[k]) for k, v in tree.items()}
+        return state_dict_from_jax_tree(full, batch_stats)
+
+    mu, nu = moments(inner["mu"]), moments(inner["nu"])
+    step = torch.tensor(float(inner["count"]))
+    names = [n for n, _ in state.trained_named_parameters()]
+    ids = sd["param_groups"][0]["params"]
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
+                       "exp_avg_sq": nu[n]} for i, n in zip(ids, names)}
+    return sd
+
+
 def load_checkpoint(path: str, state: TrainState,
                     resume: bool = False) -> TrainState:
-    """Load a ``.pth`` into ``state`` (state.py:286-333); with ``resume``
-    also the optimizer state, the epoch and the step."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    raw = ckpt.get("state_dict", ckpt)
-    merged = _merge_tolerant(state.model.state_dict(),
-                             normalize_state_dict(raw))
-    state.model.load_state_dict(merged, strict=True)
-    if resume:
-        try:
-            state.optimizer.load_state_dict(ckpt["optimizer"])
-        except (KeyError, ValueError) as e:
-            raise ValueError(
-                f"--resume requires the checkpoint's optimizer state to match "
-                f"the current optimizer; restoring it from {path} failed: "
-                f"{e!r}. Load without --resume to warm-start parameters "
-                f"only.") from e
-        state.epoch = int(ckpt.get("epoch", 0))
-        steps = [int(s["step"]) for s in state.optimizer.state.values()
-                 if "step" in s]
-        state.step = max(steps, default=0)
+    """Load a ``.pth`` or a JAX checkpoint directory into ``state``
+    (state.py:286-333); with ``resume`` also the optimizer state, the epoch
+    and the step. A JAX directory's optax Adam ``mu`` / ``nu`` / ``count``
+    become torch's ``exp_avg`` / ``exp_avg_sq`` / ``step``."""
+    sd, payload = read_any_checkpoint(path)
+    state.model.load_state_dict(
+        _merge_tolerant(state.model.state_dict(), sd), strict=True)
+    if not resume:
+        return state
+    from_jax = "params" in payload
+    try:
+        if from_jax:
+            opt_sd = _torch_state_of_jax(state, payload)
+        else:
+            if list(payload.get("freeze", [])) != list(state.freeze):
+                raise ValueError(f"the checkpoint froze "
+                                 f"{payload.get('freeze', [])}, this run "
+                                 f"freezes {list(state.freeze)}")
+            opt_sd = payload["optimizer"]
+        state.optimizer.load_state_dict(opt_sd)
+    except (KeyError, ValueError, TypeError) as e:
+        raise _resume_error(path, e) from e
+    state.epoch = int(payload.get("epoch", 0))
+    steps = [int(s["step"]) for s in state.optimizer.state.values()
+             if "step" in s]
+    state.step = max(steps, default=0)
+    if from_jax:
+        state.step = int(payload.get("step", state.step))
     return state

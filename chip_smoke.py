@@ -64,8 +64,8 @@ non-zero; nothing falls back to the CPU):
              and its forward by stage; and its ``model_last.pth``'s F1
 11. semiclass ``train --task semiclass --ge`` (unet_4, batch 8,
              contrastive: the row gram kernels at (8, 12288, 32)), 3
-             epochs, then ``--pn`` (the logit ones), 6 epochs as the JAX
-             package's semiclass F1 test, validated every epoch: losses
+             epochs, then ``--pn`` (the logit ones), 10 epochs
+             (SEMICLASS_EPOCHS), validated every epoch: losses
              finite, the heatmap loss falling, each gram launch count equal
              to the step count, the train-feature check; samples/s and the
              host cost of the first batch (the stratified sampler's build)
@@ -106,6 +106,30 @@ non-zero; nothing falls back to the CPU):
 17. explore_2d / embed_2d  the same for ``--task simsiam3d --arch
              simsiam2d_18`` (z-slice patches only) for 2 epochs
 
+The slice of ``watch``, ``classify``, freeze, ``--profile_dir`` and
+``doctor`` adds:
+
+- doctor     ``python -m cet_pick_tpu_torch doctor`` after the gram phase,
+             in a process of its own with torch's default settings, as a
+             user runs it: exit 0, ``healthy`` true (each kernel once at a
+             small shape against its plain version)
+- watch      after the main path's ``test``: ``watch --once`` over a
+             directory with its two volumes and one truncated .rec, on the
+             same checkpoint: the outputs byte-equal to ``test``'s, the
+             manifest 2 ``ok`` + 1 ``failed``, a second ``--once``
+             processing nothing, as many z-tap launches as ``test``
+- test_profile ``test --profile_dir`` on one volume: the Chrome trace
+             names ``ztap_conv_kernel``; its ten longest device operations
+             on a line of their own
+- train_classify ``classify`` (tcla, unet_4 at its defaults) for
+             CLASSIFY_EPOCHS epochs: losses finite, the last below the
+             first, accuracy > 0.9; one step, card against CPU
+- freeze     FREEZE_STEPS ``semi`` steps (unet_4, contrastive) with
+             ``freeze=("hm",)`` through ``prepare_refine`` and
+             ``train_refine``: ``hm`` bit-identical, every other parameter
+             moved, the row gram launches equal to the steps, and the
+             kernel against its plain version on the last step's features
+
 The model phase also runs ``res3d_2`` and ``res3dref_18``: the card's
 untiled forward against the CPU's, and one untiled forward of a
 256x512x512 volume with its device ms and peak memory. The kernels phase
@@ -122,7 +146,9 @@ It imports nothing of JAX.
 
 only trains and tests ``unetw_3`` once per seed (``train_seeds``), to hold
 one tree's training against another's; it runs none of the other phases,
-the exploration ones included.
+the exploration ones included. ``--semiclass-seeds 317,1,2`` does the same
+for ``train --task semiclass --pn`` over 10 epochs, with ``classify-test``
+on every other epoch's checkpoint (``semiclass_seeds``).
 """
 
 from __future__ import annotations
@@ -229,11 +255,13 @@ UNETW_EPOCHS = 4
 # semiclass (unet_4, batch 8, contrastive): --num_iters 128 draws a
 # tomogram make 32 steps an epoch on the two volumes; bbox 8 as the JAX
 # package's semiclass tests (tests/test_semiclass.py:_cfg). The --pn run,
-# whose model classify-test gates, takes the 6 epochs of the JAX package's
-# semiclass F1 test (tests/test_semiclass.py:96): after 3 its heatmap
-# peaked at 0.34, and 5 voxels of the two volumes passed out_thresh 0.3
-# (F1 0.12; PERF.md)
-SEMICLASS_EPOCHS = {"ge": 3, "pn": 6}
+# whose model classify-test gates, takes 10 epochs: from flax's initial
+# weights, as JAX's models start, its heatmap breaks through between
+# epochs 6 and 10 (classify-test F1 after 6 / 10 epochs, seeds 317, 1, 2,
+# 3: 0 / 0.91, 0.16 / 0.72, 0 / 0.63, 0 / 0; --semiclass-seeds). The 6
+# epochs of the JAX package's semiclass F1 test (tests/test_semiclass.py:96)
+# reach its 0.6 bar in 1 of 4 seeds in JAX too (tests/seed_sweep.py)
+SEMICLASS_EPOCHS = {"ge": 3, "pn": 10}
 SEMICLASS_ITERS = 128
 SEMICLASS_BATCH = 8
 SEMICLASS_F1_GATE = 0.6  # tests/test_semiclass.py:128-131
@@ -1066,7 +1094,8 @@ def semiclass_host(work):
             "batch_s": (time.perf_counter() - t0) / 10}
 
 
-def phase_train_semiclass(work, pn=False):
+def phase_train_semiclass(work, pn=False, epochs=None, exp_id=None,
+                          extra=()):
     """``train --task semiclass`` (unet_4, batch 8, contrastive, bbox 8)
     with ``--ge`` (the row gram kernels) or ``--pn`` (the logit ones),
     validated every epoch (the z-tap kernel): losses finite, the heatmap
@@ -1076,13 +1105,13 @@ def phase_train_semiclass(work, pn=False):
     variant, fn_name = ("logit", "gram_logit_stats") if pn else \
         ("row", "gram_row_stats")
     phase = "train_semiclass_pn" if pn else "train_semiclass"
-    epochs = SEMICLASS_EPOCHS["pn" if pn else "ge"]
+    epochs = epochs or SEMICLASS_EPOCHS["pn" if pn else "ge"]
     argv = ["train", "--task", "semiclass", "--pn" if pn else "--ge",
-            "--arch", "unet_4", "--exp_id", phase, "--order", "zxy",
+            "--arch", "unet_4", "--exp_id", exp_id or phase, "--order", "zxy",
             "--data_dir", work, "--root_dir", work, "--device", DEVICE,
             "--batch_size", str(SEMICLASS_BATCH), "--bbox", "8",
             "--num_epochs", str(epochs), "--num_iters",
-            str(SEMICLASS_ITERS), "--val_intervals", "1"]
+            str(SEMICLASS_ITERS), "--val_intervals", "1", *extra]
     per_epoch = SEMICLASS_ITERS * 2 // SEMICLASS_BATCH
     with captured_gram(train_losses, fn_name, per_epoch) as kept:
         lines, launches, wall = run_cli(argv)
@@ -1111,8 +1140,9 @@ def phase_train_semiclass(work, pn=False):
     return rec, launches
 
 
-def phase_classify_test(work, names, planted, exp_id, phase, gate):
-    """``classify-test`` with a semiclass run's ``model_last.pth`` on the
+def phase_classify_test(work, names, planted, exp_id, phase, gate,
+                        ckpt="model_last.pth"):
+    """``classify-test`` with a semiclass run's ``ckpt`` on the
     two volumes (CLASSIFY_ARGS): the z-tap kernel launched, the heatmaps'
     30-voxel xy border zero, the candidates the greedy NMS visits, stage
     times a volume, and the F1 of the picks against the planted centres
@@ -1122,7 +1152,7 @@ def phase_classify_test(work, names, planted, exp_id, phase, gate):
             "--order", "zxy", "--data_dir", work, "--root_dir", work,
             "--with_score", "--device", DEVICE, *CLASSIFY_ARGS,
             "--load_model", os.path.join(work, "exp", "semiclass", exp_id,
-                                         "model_last.pth")]
+                                         ckpt)]
     cfg = Config(task="semiclass", ge=True, **CLASSIFY).finalize()
     lines, launches, wall = run_cli(argv)
     if launches["ztap_dilated_conv"] == 0:
@@ -1152,7 +1182,7 @@ def phase_classify_test(work, names, planted, exp_id, phase, gate):
                     and cfg.cutoff_z <= z <= d - cfg.cutoff_z]
                 for n in names}
     ev = pick_f1(out_dir, names, pickable)
-    rec = {"phase": phase, "arch": "unet_4", "checkpoint": "model_last.pth",
+    rec = {"phase": phase, "arch": "unet_4", "checkpoint": ckpt,
            "flags": CLASSIFY_ARGS, "launches": launches, "times_s": times,
            "candidates": candidates, "hm_max": hm_max, "cli_wall_s": wall,
            "planted_pickable": sum(len(v) for v in pickable.values()),
@@ -1962,10 +1992,285 @@ def phase_embed(work, planted, sizes, mode="2d3d"):
     return rec
 
 
-def _gram_entries(name, rec, launches, fwd_line, bwd_line):
+WATCH_TRUNCATED = "zz_truncated.rec"  # sorts last: warm reads tomo_a
+CLASSIFY_EPOCHS = 3
+CLASSIFY_ACC_GATE = 0.9   # tests/test_models.py:276-277
+# the accuracy card against CPU: a voxel whose probability rounds across
+# 0.5 flips its prediction, 1 / 12,288 of a 2 x 6 x 32 x 32 target each
+CLASSIFY_ACC_TOL = 1e-3
+FREEZE_STEPS = 8
+
+
+def _stage_times(lines, prefix=""):
+    """{name: {stage: s}} of ``name: stage 0.1s ...`` log lines (``test``'s,
+    or ``watch``'s ``watch: name -> n picks stage 0.1s ...``)."""
+    times = {}
+    for line in lines:
+        m = re.match(prefix + r"(\S+)(?: -> \d+ picks)?:? (.*)", line)
+        if not m or not re.search(r"tot [0-9.]+s", m.group(2)):
+            continue
+        vals = m.group(2).split()
+        times[m.group(1).rstrip(":")] = {
+            k: float(v.rstrip("s")) for k, v in zip(vals[::2], vals[1::2])}
+    return times
+
+
+def phase_watch(work, names, main_rec, ckpt="model_best.pth"):
+    """``watch --once`` over a directory with the main path's two volumes
+    and one truncated .rec, on the checkpoint ``phase_main_path``'s
+    ``test`` read: the two volumes' outputs byte-equal to ``test``'s, the
+    manifest 2 ``ok`` + 1 ``failed``, a second ``--once`` processes nothing,
+    and as many z-tap launches as ``test`` made for the same volumes."""
+    from cet_pick_tpu_torch.infer.watch import MANIFEST
+
+    watch_dir = os.path.join(work, "incoming")
+    os.makedirs(watch_dir, exist_ok=True)
+    for name in names:
+        os.symlink(os.path.join(work, f"{name}.rec"),
+                   os.path.join(watch_dir, f"{name}.rec"))
+    with open(os.path.join(work, f"{names[0]}.rec"), "rb") as f:
+        head = f.read(1 << 20)  # the header and the first slices only
+    with open(os.path.join(watch_dir, WATCH_TRUNCATED), "wb") as f:
+        f.write(head)
+    argv = ["watch", "--watch_dir", watch_dir, "--once", "--task", "semi",
+            "--arch", "unet_4", "--exp_id", "watch", "--order", "zxy",
+            "--root_dir", work, "--with_score", "--device", DEVICE,
+            "--load_model", os.path.join(work, "exp", "semi", "default",
+                                         ckpt)]
+    lines, launches, wall = run_cli(argv)
+    out_dir = os.path.join(work, "exp", "semi", "watch", "output")
+    test_dir = os.path.join(work, "exp", "semi", "default", "output")
+    same = {}
+    for name in names:
+        for f in (f"{name}.txt", f"{name}_hm.mrc"):
+            with open(os.path.join(out_dir, f), "rb") as a, \
+                    open(os.path.join(test_dir, f), "rb") as b:
+                same[f] = a.read() == b.read()
+    with open(os.path.join(out_dir, MANIFEST)) as f:
+        rows = [ln.rstrip("\n").split("\t") for ln in f
+                if not ln.startswith("#")]
+    statuses = {os.path.basename(r[0]): r[3] for r in rows}
+    lines2, launches2, wall2 = run_cli(argv)
+    with open(os.path.join(out_dir, MANIFEST)) as f:
+        rows2 = sum(1 for ln in f if not ln.startswith("#"))
+    times = _stage_times(lines, prefix="watch: ")
+    rec = {"phase": "watch", "arch": "unet_4", "checkpoint": ckpt,
+           "volumes": len(names), "launches": launches,
+           "test_launches": main_rec["launches"]["ztap_dilated_conv"],
+           "times_s": times, "test_times_s": main_rec["times_s"],
+           "outputs_equal_test": same, "manifest": statuses,
+           "failed_line": [ln for ln in lines if "FAILED" in ln],
+           "second_once_launches": launches2["ztap_dilated_conv"],
+           "second_once_manifest_rows": rows2, "cli_wall_s": wall,
+           "second_once_wall_s": wall2}
+    emit(rec)
+    want = {f"{n}.rec": "ok" for n in names}
+    want[WATCH_TRUNCATED] = "failed"
+    if not all(same.values()) or statuses != want or len(rows) != 3:
+        raise RuntimeError(f"watch: outputs equal {same}, manifest "
+                           f"{statuses}")
+    if rows2 != 3 or launches2["ztap_dilated_conv"] != 0:
+        raise RuntimeError(f"watch: the second --once processed files "
+                           f"({rows2} rows, {launches2})")
+    if launches["ztap_dilated_conv"] != rec["test_launches"]:
+        raise RuntimeError(f"watch: {launches['ztap_dilated_conv']} z-tap "
+                           f"launches, test made {rec['test_launches']}")
+    return rec
+
+
+def phase_test_profile(work, names, ckpt="model_best.pth"):
+    """``test --profile_dir`` on one volume: one Chrome trace, which must
+    name ``ztap_conv_kernel``; its ten longest device operations (summed by
+    name) are printed on a line of their own."""
+    listing = os.path.join(work, "profile_images.txt")
+    with open(listing, "w") as f:
+        f.write(f"image_name\trec_path\n{names[0]}\t"
+                f"{os.path.join(work, names[0] + '.rec')}\n")
+    prof_dir = os.path.join(work, "profile")
+    lines, launches, wall = run_cli(
+        ["test", "--task", "semi", "--arch", "unet_4", "--exp_id", "profile",
+         "--order", "zxy", "--data_dir", work, "--root_dir", work,
+         "--test_img_txt", "profile_images.txt", "--device", DEVICE,
+         "--profile_dir", prof_dir, "--load_model",
+         os.path.join(work, "exp", "semi", "default", ckpt)])
+    traces = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    if len(traces) != 1:
+        raise RuntimeError(f"test --profile_dir wrote {traces}")
+    path = os.path.join(prof_dir, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device[e["name"]] = device.get(e["name"], 0.0) + e.get("dur", 0)
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:10]
+    ztap = [n for n in device if "ztap_conv_kernel" in n]
+    emit({"phase": "test_profile_top10", "what": "the trace's ten longest "
+          "device operations, ms summed by name (one 256x512x512 volume, "
+          "warm included)", "ops_ms": [(n[:120], d / 1e3) for n, d in top]})
+    rec = {"phase": "test_profile", "arch": "unet_4", "launches": launches,
+           "trace_bytes": os.path.getsize(path),
+           "device_ops": len(device), "ztap_kernel_names": ztap,
+           "device_ms_total": sum(device.values()) / 1e3,
+           "times_s": _stage_times(lines), "cli_wall_s": wall}
+    emit(rec)
+    if not ztap or launches["ztap_dilated_conv"] == 0:
+        raise RuntimeError("the profiled test's trace names no "
+                           "ztap_conv_kernel")
+    return rec
+
+
+def classify_step_card_vs_cpu(work):
+    """One tcla step of unet_4 (seeded weights) on the same batch, card
+    against CPU, at the explore phases' bars: the loss and accuracy, the
+    BN running statistics, and the gradients, each within its bar of its
+    tensor's largest, that floored at 1e-3 of the model's largest (a conv
+    bias that feeds a BatchNorm has a zero gradient but for rounding, as
+    tests/test_torch_train.py floors it). The parameters after the step are
+    not compared: Adam moves a rounding-noise gradient by +-lr whatever its
+    size."""
+    from cet_pick_tpu_torch.train.classify import make_classify_train_step
+
+    cfg = Config(task="tcla", arch="unet_4", pn=True, data_dir=work,
+                 order="zxy", root_dir=work).finalize()
+    batch = RefineDataset(cfg, "train").sample_batch(
+        np.random.default_rng(0), [0])
+    out = {}
+    for dev in ("cpu", DEVICE):
+        prepared = prepare_refine(cfg, log_fn=lambda *_: None, device=dev)
+        model, state = prepared["model"], prepared["state"]
+        m = make_classify_train_step(model, cfg)(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        out[dev] = {"metrics": {k: float(v) for k, v in m.items()},
+                    "grads": {n: p.grad.detach().cpu()
+                              for n, p in model.named_parameters()},
+                    "state": {k: v.cpu() for k, v in
+                              model.state_dict().items()}}
+    card, cpu = out[DEVICE], out["cpu"]
+    errs = {k: abs(card["metrics"][k] - cpu["metrics"][k])
+            for k in cpu["metrics"]}
+    floor = 1e-3 * max(float(g.abs().max()) for g in cpu["grads"].values())
+    errs["grad_rel"] = max(
+        _rel_err(card["grads"][n], g, max(float(g.abs().max()), floor))
+        for n, g in cpu["grads"].items())
+    sd_g, sd_c = card["state"], cpu["state"]
+    errs["bn_var_rel"] = max(_rel_err(sd_g[k], sd_c[k]) for k in sd_c
+                             if k.endswith("running_var"))
+    errs["bn_mean_rel"] = max(
+        _rel_err(sd_g[k], sd_c[k], math.sqrt(float(
+            sd_c[k[:-len("mean")] + "var"].max())))
+        for k in sd_c if k.endswith("running_mean"))
+    bars = {"loss": EXPLORE_LOSS_TOL, "acc": CLASSIFY_ACC_TOL,
+            "bn_var_rel": EXPLORE_STAT_TOL, "bn_mean_rel": EXPLORE_STAT_TOL,
+            "grad_rel": EXPLORE_GRAD_TOL}
+    return errs, bars
+
+
+def phase_train_classify(work):
+    """``classify`` (tcla) with unet_4 at its defaults for CLASSIFY_EPOCHS
+    epochs on the main path's volumes and annotations: the losses finite,
+    the last epoch below the first, accuracy above CLASSIFY_ACC_GATE; and
+    one step, card against CPU."""
+    lines, launches, wall = run_cli(
+        ["classify", "--order", "zxy", "--data_dir", work, "--root_dir",
+         work, "--device", DEVICE, "--num_epochs", str(CLASSIFY_EPOCHS)])
+    steps = {}
+    means, rates = _epoch_lines(lines, steps)
+    losses = [means[e]["loss"] for e in sorted(means)]
+    accs = [means[e]["acc"] for e in sorted(means)]
+    errs, bars = classify_step_card_vs_cpu(work)
+    fails = [k for k, v in errs.items() if not v <= bars[k]]
+    rec = {"phase": "train_classify", "arch": "unet_4",
+           "epochs": CLASSIFY_EPOCHS, "steps": steps, "launches": launches,
+           "epoch_means": means, "steady_samples_per_s": rates,
+           "cli_wall_s": wall, "card_vs_cpu_step": errs, "bars": bars}
+    emit(rec)
+    if not all(math.isfinite(v) for v in losses + accs) or len(losses) < 2 \
+            or not losses[-1] < losses[0] \
+            or not accs[-1] > CLASSIFY_ACC_GATE:
+        raise RuntimeError(f"classify: losses {losses}, accuracy {accs}")
+    if not os.path.exists(os.path.join(work, "exp", "tcla", "default",
+                                       "model_last.pth")):
+        raise RuntimeError("classify wrote no model_last.pth")
+    if fails:
+        raise RuntimeError(f"classify step: card != CPU at {fails}: {errs}")
+    return rec
+
+
+def phase_freeze(work):
+    """FREEZE_STEPS steps of ``semi`` (unet_4, PU + contrastive) on the main
+    path's crops with ``freeze=("hm",)`` through ``prepare_refine`` and
+    ``train_refine``: the ``hm`` weights bit-identical, every other
+    parameter moved, the row gram kernels launched once a step each way;
+    and the kernel against its plain version on the last step's inputs.
+    Returns (record, launches)."""
+    from cet_pick_tpu_torch.train.refine import train_refine
+
+    cfg = Config(task="semi", arch="unet_4", contrastive=True, data_dir=work,
+                 order="zxy", root_dir=work, exp_id="freeze", num_epochs=1,
+                 num_iters=FREEZE_STEPS, val_intervals=0).finalize()
+    ds = RefineDataset(cfg, "train")
+    prepared = prepare_refine(cfg, log_fn=lambda *_: None, device=DEVICE,
+                              freeze=("hm",))
+    model = prepared["model"]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.empty_cache()
+    reset_launches()
+    with captured_gram(train_losses, "gram_row_stats", FREEZE_STEPS) as kept:
+        t0 = time.perf_counter()
+        state, hist = train_refine(cfg, ds, log_fn=lambda *_: None,
+                                   prepared=prepared)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    moved = {n: not torch.equal(p.detach(), before[n])
+             for n, p in model.named_parameters()}
+    hm_same = all(not v for n, v in moved.items() if n.startswith("hm."))
+    others = [n for n, v in moved.items() if not n.startswith("hm.") and not v]
+    checks = check_train_gram("freeze", "row", kept)
+    rec = {"phase": "freeze", "arch": "unet_4", "freeze": ["hm"],
+           "steps": state.step, "launches": launches, "epoch_means": hist,
+           "hm_bit_identical": hm_same, "unmoved_parameters": others,
+           "parameters": len(moved), "wall_s": wall,
+           "gram_check_ok": all(c["ok"] for c in checks)}
+    emit(rec)
+    row = launches["gram_row_stats"]
+    if not hm_same or others:
+        raise RuntimeError(f"freeze: hm identical {hm_same}, unmoved {others}")
+    if state.step != FREEZE_STEPS or row["fwd"] != FREEZE_STEPS \
+            or row["bwd"] != FREEZE_STEPS:
+        raise RuntimeError(f"freeze: {state.step} steps, row gram {row}")
+    if not all(math.isfinite(v) for m in hist for v in m.values()):
+        raise RuntimeError(f"freeze: metrics not finite: {hist}")
+    return rec, launches
+
+
+def phase_doctor():
+    """``doctor`` on the card, in a process of its own (this one has turned
+    TF32 off, a fresh one has not): exit 0 and ``healthy`` true."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cet_pick_tpu_torch", "doctor"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    report = json.loads(lines[-1]) if lines else {}
+    emit({"phase": "doctor", "rc": proc.returncode, "report": report,
+          "cli_wall_s": wall})
+    if proc.returncode != 0 or report.get("healthy") is not True \
+            or report.get("backend") != "cuda":
+        raise RuntimeError(f"doctor exited {proc.returncode}: {report} "
+                           f"{proc.stderr[-2000:]}")
+    return report
+
+
+def _gram_entries(name, rec, launches, fwd_line, bwd_line, more=None):
     """The forward's and the backward's entries. Each is one launch
     (``launches``) and, with its column tiles in slices, the partials'
-    reduce; its ms is the two together."""
+    reduce; its ms is the two together. ``more``: {key: launches of
+    another path}, each entry taking its own pass's count."""
+    more = more or {}
     src = "cet_pick_tpu/ops/pallas_gram.py"
     common = {"route": "cuda", "source": "cet_pick_tpu_torch/csrc/gram_stats.cu",
               "library_ms": rec["library_ms"], "product_ms": rec["product_ms"],
@@ -1977,6 +2282,7 @@ def _gram_entries(name, rec, launches, fwd_line, bwd_line):
              launches_by_kind={k: launches[k] for k in ("fwd", "fwd_reduce")},
              slices=rec["fwd_slices"], ms=rec["ms"]["fwd"],
              plain_ms=rec["plain_ms"]["fwd"], max_abs_err=rec["max_abs_err"],
+             **{k: v["fwd"] for k, v in more.items()},
              **{k: rec[f"fwd_{k}"] for k in bound}),
         dict(common, name=f"{name}.bwd", replaces=f"{src}:{bwd_line}",
              launches=launches["bwd"],
@@ -1986,6 +2292,7 @@ def _gram_entries(name, rec, launches, fwd_line, bwd_line):
              ms_by_kind={k: rec["ms"][k] for k in ("bwd", "bwd_reduce")},
              plain_ms=rec["plain_ms"]["bwd"],
              max_abs_err=rec["grad_max_abs_err"],
+             **{k: v["bwd"] for k, v in more.items()},
              **{k: rec[f"bwd_{k}"] for k in bound}),
     ]
 
@@ -2026,12 +2333,43 @@ def train_seeds(seeds):
                   "gram_check_ok": rec["gram_check_ok"]})
 
 
+def semiclass_seeds(seeds, epochs=10):
+    """``--semiclass-seeds``: ``train --task semiclass --pn`` as the smoke
+    runs it, but for ``epochs`` epochs with ``--save_all``, once per seed,
+    and ``classify-test`` on the checkpoints of epochs 4, 6, 8 and 10;
+    emits the epoch losses and each F1. Gates nothing: it shows how many
+    epochs the path needs from its initial weights."""
+    with tempfile.TemporaryDirectory() as work:
+        names, planted = write_data(work)
+        for seed in seeds:
+            exp_id = f"semiclass_pn_seed{seed}"
+            rec, _ = phase_train_semiclass(
+                work, pn=True, epochs=epochs, exp_id=exp_id,
+                extra=("--seed", str(seed), "--save_all"))
+            f1 = {}
+            for epoch in range(4, epochs + 1, 2):
+                f1[epoch] = phase_classify_test(
+                    work, names, planted, exp_id, "classify_test_seed",
+                    gate=False, ckpt=f"model_{epoch}.pth")["f1"]
+            emit({"phase": "semiclass_seed_summary", "seed": seed,
+                  "hm_loss": {e: m["hm_loss"]
+                              for e, m in rec["epoch_means"].items()},
+                  "val_focal": {e: m.get("val_focal")
+                                for e, m in rec["epoch_means"].items()},
+                  "f1_by_epoch": f1})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--train-seeds", type=lambda s: [int(v) for v in s.split(",")],
         help="comma-separated seeds: only train and test unetw_3 once per "
              "seed (train_seeds), in place of the smoke run")
+    parser.add_argument(
+        "--semiclass-seeds", type=lambda s: [int(v) for v in s.split(",")],
+        help="comma-separated seeds: only train semiclass --pn for 10 "
+             "epochs and classify-test every other epoch, once per seed "
+             "(semiclass_seeds), in place of the smoke run")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -2041,12 +2379,16 @@ def main(argv=None):
     smi, name = phase_card()
     peaks = peaks_for(name)
     phase_build()
-    if args.train_seeds:
-        train_seeds(args.train_seeds)
+    if args.train_seeds or args.semiclass_seeds:
+        if args.train_seeds:
+            train_seeds(args.train_seeds)
+        if args.semiclass_seeds:
+            semiclass_seeds(args.semiclass_seeds)
         print(smi)
         return 0
     ztap = phase_kernels(peaks)
     gram = phase_gram(peaks)
+    phase_doctor()
     for arch in ("unet_4", "unetw_3"):
         phase_model(arch)
     for arch in ("res3d_2", "res3dref_18"):
@@ -2057,11 +2399,15 @@ def main(argv=None):
         _, train_launches, pn_launches = phase_train(work)
         phase_train_breakdown(work)
         main_rec = phase_main_path(work, names, planted)
+        watch_rec = phase_watch(work, names, main_rec)
+        profile_rec = phase_test_profile(work, names)
         phase_main_path(work, names, planted, phase="main_path_last",
                         ckpt="model_last.pth", gate=False)
         phase_breakdown(os.path.join(work, "exp", "semi", "default",
                                      "model_best.pth"))
         cr_launches = phase_train_supervised(work)
+        phase_train_classify(work)
+        _, freeze_launches = phase_freeze(work)
         _, unetw_train = phase_train_unetw(work)
         phase_train_breakdown(work, "unetw_3")
         unetw_rec = phase_main_path(work, names, planted, "unetw_3", "unetw",
@@ -2096,6 +2442,10 @@ def main(argv=None):
         _ztap_entry("ztap_dilated_conv", ztap["unet"],
                     main_rec["launches"]["ztap_dilated_conv"],
                     train_launches["ztap_dilated_conv"],
+                    launches_in_watch=watch_rec["launches"][
+                        "ztap_dilated_conv"],
+                    launches_in_test_profile=profile_rec["launches"][
+                        "ztap_dilated_conv"],
                     launches_in_classify_test=[
                         r["launches"]["ztap_dilated_conv"]
                         for r in (cls_pn, cls_ge)],
@@ -2110,7 +2460,9 @@ def main(argv=None):
                     semi3d_train["ztap_dilated_conv"]),
     ]
     kernels += _gram_entries("gram_row_stats", gram["row"],
-                             train_launches["gram_row_stats"], 92, 109)
+                             train_launches["gram_row_stats"], 92, 109,
+                             {"launches_in_freeze":
+                              freeze_launches["gram_row_stats"]})
     kernels += _gram_entries("gram_row_stats[C=128]", gram["row_c128"],
                              unetw_train["gram_row_stats"], 92, 109)
     kernels += _gram_entries("gram_row_stats[B=8,semiclass]",

@@ -143,7 +143,9 @@ def test_load_export_torch_pth(tmp_path, wrap):
 
 
 def test_load_checkpoint_rejects_non_pth():
-    with pytest.raises(ValueError, match="export-torch"):
+    """A path that is neither a .pth nor a JAX checkpoint directory (a
+    directory with state.msgpack, tests/test_torch_flax_checkpoint.py)."""
+    with pytest.raises(ValueError, match="state.msgpack"):
         load_checkpoint("exp/semi/default/model_last")
 
 

@@ -64,12 +64,14 @@ def test_cuda_device_without_cuda_raises():
         TomoDetector(cfg, state_dict={}, device="cuda")
 
 
-@pytest.mark.parametrize("cmd", ["train", "export-torch", "watch", "moco"])
+@pytest.mark.parametrize("cmd", ["train", "export-torch", "denoise", "moco"])
 def test_unported_commands_exit_nonzero(cmd, capsys):
     """Unported commands, and ``train`` for the tasks other than semi,
-    semi3d, semiclass, tomo and cr; ``classify-test``, ``explore`` and
-    ``embed`` are ported."""
-    for ported in ("classify-test", "explore", "embed"):
+    semi3d, semiclass, tomo and cr; the commands of the port's slices so
+    far are ported."""
+    for ported in ("classify-test", "explore", "embed", "watch", "classify",
+                   "merge", "pr-curve", "remove-golds", "gen-files", "flags",
+                   "doctor"):
         assert ported not in NOT_PORTED and ported in COMMANDS
     if cmd == "train":
         assert cmd not in NOT_PORTED
@@ -89,10 +91,3 @@ def test_train_on_cuda_without_cuda_raises():
     with pytest.raises(RuntimeError, match="--device cpu"):
         prepare_refine(Config(task="semi", arch="unet_2").finalize(),
                        device="cuda")
-
-
-def test_profile_dir_raises(tmp_path):
-    (tmp_path / "test_images.txt").write_text("image_name\trec_path\n")
-    with pytest.raises(NotImplementedError, match="profiling"):
-        main(["test", "--device", "cpu", "--profile_dir", str(tmp_path),
-              "--data_dir", str(tmp_path)])
