@@ -44,6 +44,26 @@ Ported so far:
                  subvols_2d]) from ``--load_model`` (default
                  ``model_last.pth`` of the experiment; a reference
                  exploration ``.pth`` loads too)
+  scan           SCAN clustering of ``embed``'s ``pred`` vectors (kNN
+                 neighbours mined on the device, a linear head trained with
+                 the SCAN loss): ``--out`` npz with label / name / coords
+  scan-finetune  SCAN fine-tune of the whole exploration encoder from an
+                 ``explore`` checkpoint (``--load_model``: the port's
+                 ``.pth``, a JAX ``model_last/`` directory or a reference
+                 ``.pth``) over the test split's DoG candidates, with
+                 ``--nheads`` cluster heads and optional self-labeling:
+                 ``--out`` npz (label / name / coords / best_head) and
+                 ``scan_model_last.pth`` (reference ``ClusteringModel``
+                 layout) with ``best_head.json``
+  plot2d         k-means (on the device) + spectral clustering of the
+                 embeddings, thumbnails, the interactive parquet, the 2D
+                 layout's colors and plots (pandas, pyarrow, scikit-learn,
+                 matplotlib, Pillow; umap-learn optional)
+  phoenix        the Arize Phoenix browser over the parquet (arize-phoenix)
+  to-coords      a Phoenix-exported selection -> training coordinates
+  sublabels      chosen cluster labels -> per-tomogram ``x\tz\ty`` txts
+  visualize3d    napari overlay volumes of the embedding colors (OpenCV,
+                 SciPy)
   watch          ``test`` as a service: poll ``--watch_dir`` every ``--poll``
                  seconds, pick each new .rec/.mrc once its size and mtime
                  hold over two polls (``--once``: the backlog, then exit),
@@ -85,9 +105,8 @@ from cet_pick_tpu_torch.config import Config
 
 # the JAX package's other commands, in its order (cet_pick_tpu/__main__.py)
 NOT_PORTED = (
-    "moco", "fewshot", "denoise", "scan", "scan-finetune", "plot2d",
-    "phoenix", "to-coords", "sublabels", "visualize3d", "extract-spectrum",
-    "match-spectrum", "backproject", "export-torch", "import-torch",
+    "moco", "fewshot", "denoise", "extract-spectrum", "match-spectrum",
+    "backproject", "export-torch", "import-torch",
 )
 
 
@@ -260,8 +279,8 @@ def cmd_embed(argv):
     set_float32_precision(cfg.dtype)
     device = resolve_device(args.device)
     model = create_simsiam(cfg)
-    model.load_state_dict(load_simsiam_checkpoint(cfg.load_model),
-                          strict=True)
+    model.load_state_dict(load_simsiam_checkpoint(
+        cfg.load_model, fill=model.state_dict()), strict=True)
     model.to(device)
     t0 = time.perf_counter()
     dataset = ExploreDataset(cfg, "test", device=device)
@@ -271,6 +290,264 @@ def cmd_embed(argv):
     print(f"embed: dataset build {t1 - t0:.3f}s, forward {t2 - t1:.3f}s "
           f"for {len(result['proj'])} patches")
     print(f"saved {save_embeddings(cfg, result)}")
+
+
+def cmd_scan(argv):
+    """SCAN clustering over extracted embeddings
+    (cet_pick_tpu/__main__.py:420-447)."""
+    parser = argparse.ArgumentParser(prog="cet_pick_tpu_torch scan")
+    parser.add_argument("--input", required=True, help="all_output_info.npz")
+    parser.add_argument("--out", required=True, help="output npz with labels")
+    parser.add_argument("--n_clusters", type=int, required=True)
+    parser.add_argument("--neighbors", type=int, default=20)
+    parser.add_argument("--steps", type=int, default=500)
+    parser.add_argument("--lr", type=float, default=1e-3)
+    parser.add_argument("--entropy_weight", type=float, default=2.0)
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="device to run on (default: cuda)")
+    a = parser.parse_args(argv)
+    import numpy as np
+
+    from cet_pick_tpu_torch.infer.detector import (
+        resolve_device,
+        set_float32_precision,
+    )
+    from cet_pick_tpu_torch.train.scan import (
+        mine_neighbors,
+        scan_evaluate,
+        train_scan_head,
+    )
+
+    set_float32_precision("float32")
+    device = resolve_device(a.device)
+    data = np.load(a.input)
+    feats = data["pred"].astype(np.float32)
+    t0 = time.perf_counter()
+    nb = mine_neighbors(feats, k=a.neighbors, device=device)
+    t1 = time.perf_counter()
+    _, _, assign = train_scan_head(
+        feats, nb, a.n_clusters, num_steps=a.steps, lr=a.lr,
+        entropy_weight=a.entropy_weight, device=device)
+    t2 = time.perf_counter()
+    consistency = scan_evaluate(assign, nb)
+    np.savez(a.out, label=assign, name=data["name"], coords=data["coords"])
+    print(f"scan: neighbors {t1 - t0:.3f}s, head {t2 - t1:.3f}s for "
+          f"{a.steps} steps over {len(feats)} embeddings")
+    print(f"saved {a.out}; neighbor consistency {consistency:.3f}, "
+          f"{len(set(assign.tolist()))} clusters used")
+
+
+def cmd_scan_finetune(argv):
+    """Full-model SCAN fine-tune (+ optional self-labeling) over the DoG
+    candidates of the test split (cet_pick_tpu/__main__.py:450-530)."""
+    parser = _parser("cet_pick_tpu_torch scan-finetune",
+                     Config(task="scan2d3d", arch="simsiam2d3d_18", bbox=36,
+                            batch_size=64))
+    parser.add_argument("--out", required=True, help="output npz with labels")
+    parser.add_argument("--neighbors", type=int, default=20)
+    parser.add_argument("--steps", type=int, default=300)
+    parser.add_argument("--scan_lr", type=float, default=1e-4)
+    parser.add_argument("--entropy_weight", type=float, default=2.0)
+    parser.add_argument("--cluster_head", action="store_true",
+                        help="update only the cluster head (reference "
+                             "--cluster_head; default fine-tunes everything)")
+    parser.add_argument("--selflabel_steps", type=int, default=0)
+    parser.add_argument("--selflabel_threshold", type=float, default=0.99)
+    a = parser.parse_args(argv)
+    cfg = config_from_args(a)
+    if not cfg.load_model:
+        raise SystemExit("--load_model: trained simsiam checkpoint required")
+    from cet_pick_tpu_torch.models.simsiam import explore_mode
+
+    if explore_mode(cfg) == "vol":
+        print(f"scan-finetune --task {cfg.task} --arch {cfg.arch} is not yet "
+              f"ported to cet_pick_tpu_torch (it runs the 2d3d and 2d patch "
+              f"encoders); run it with `python -m cet_pick_tpu`")
+        return 2
+    if not os.path.exists(os.path.join(cfg.data_dir, cfg.test_img_txt)):
+        raise FileNotFoundError(os.path.join(cfg.data_dir, cfg.test_img_txt))
+    import numpy as np
+
+    from cet_pick_tpu_torch.data.explore_dataset import ExploreDataset
+    from cet_pick_tpu_torch.infer.detector import (
+        resolve_device,
+        set_float32_precision,
+    )
+    from cet_pick_tpu_torch.infer.embed import extract_embeddings
+    from cet_pick_tpu_torch.models.convert import load_simsiam_checkpoint
+    from cet_pick_tpu_torch.models.simsiam import create_simsiam
+    from cet_pick_tpu_torch.train.scan import (
+        mine_neighbors,
+        scan_evaluate,
+        train_scan_full,
+    )
+    from cet_pick_tpu_torch.train.state import (
+        checkpoint_payload,
+        write_checkpoint_file,
+    )
+
+    set_float32_precision(cfg.dtype)
+    device = resolve_device(a.device)
+    encoder = create_simsiam(cfg)
+    pretext = load_simsiam_checkpoint(cfg.load_model,
+                                      fill=encoder.state_dict())
+    encoder.load_state_dict(pretext, strict=True)
+    encoder.to(device)
+    t0 = time.perf_counter()
+    ds = ExploreDataset(cfg, "test", device=device)
+    t1 = time.perf_counter()
+    result = extract_embeddings(encoder, ds, device=device)
+    nb = mine_neighbors(result["pred"].astype(np.float32), k=a.neighbors,
+                        device=device)
+    # the patch stacks normalized as the embedding pass does
+    # (infer/embed.py, cet_pick_tpu/__main__.py:506-513)
+    p3n = (np.stack(ds.patches_3d).astype(np.float32) - ds.mean_3d) \
+        / ds.std_3d
+    if encoder.mode == "2d3d":
+        p2 = (np.stack(ds.patches_2d).astype(np.float32) - ds.mean_2d) \
+            / ds.std_2d
+        p3 = p3n
+    else:
+        p2, p3 = p3n, None
+    t2 = time.perf_counter()
+    state, _, assign, best_head = train_scan_full(
+        cfg, p2, p3, nb, n_clusters=cfg.nclusters, n_heads=cfg.nheads,
+        pretext=pretext, num_steps=a.steps, batch_size=cfg.batch_size,
+        lr=a.scan_lr, entropy_weight=a.entropy_weight,
+        head_only=a.cluster_head, selflabel_steps=a.selflabel_steps,
+        selflabel_threshold=a.selflabel_threshold, seed=cfg.seed,
+        device=device)
+    t3 = time.perf_counter()
+    consistency = scan_evaluate(assign, nb)
+    np.savez(a.out, label=assign, name=result["name"],
+             coords=result["coords"], best_head=best_head)
+    # the reference ClusteringModel .pth (JAX: the msgpack directory
+    # scan_model_last/), the winning head in it and beside it
+    payload = checkpoint_payload(state)
+    payload["best_loss_head"] = best_head
+    ck = os.path.join(cfg.save_dir, "scan_model_last.pth")
+    write_checkpoint_file(ck, payload, cfg)
+    with open(os.path.join(cfg.save_dir, "best_head.json"), "w") as f:
+        json.dump({"best_loss_head": best_head}, f)
+    print(f"scan-finetune: dataset build {t1 - t0:.3f}s, embed + neighbors "
+          f"{t2 - t1:.3f}s, scan {t3 - t2:.3f}s for {a.steps} + "
+          f"{a.selflabel_steps} steps over {len(assign)} patches")
+    print(f"saved {a.out}; neighbor consistency {consistency:.3f}, "
+          f"{len(set(assign.tolist()))} clusters used, best head {best_head}")
+
+
+def cmd_plot2d(argv):
+    """Clustering + 2D views of the embeddings
+    (cet_pick_tpu/__main__.py:533-551); the k-means runs on ``--device``."""
+    parser = argparse.ArgumentParser(prog="cet_pick_tpu_torch plot2d")
+    parser.add_argument("--input", required=True)
+    parser.add_argument("--path", required=True)
+    parser.add_argument("--n_cluster", type=int, required=True)
+    parser.add_argument("--num_neighbor", type=int, default=40)
+    parser.add_argument("--mode", choices=["tsne", "umap"], default="umap")
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--host", type=int, default=7000)
+    parser.add_argument("--min_dist_umap", type=float, default=0.5)
+    parser.add_argument("--min_dist_vis", type=float, default=0.01)
+    parser.add_argument("--save_out_img", type=int, default=1)
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="device of the k-means (default: cuda)")
+    a = parser.parse_args(argv)
+    from cet_pick_tpu_torch.infer.detector import (
+        resolve_device,
+        set_float32_precision,
+    )
+    from cet_pick_tpu_torch.viz.plot2d import plot_2d
+
+    set_float32_precision("float32")
+    plot_2d(a.input, a.path, a.n_cluster, num_neighbor=a.num_neighbor,
+            mode=a.mode, seed=a.seed, host=a.host,
+            min_dist_umap=a.min_dist_umap, min_dist_vis=a.min_dist_vis,
+            save_imgs=a.save_out_img == 1, device=resolve_device(a.device))
+
+
+def cmd_phoenix(argv):
+    """The Phoenix browser over a plot2d parquet
+    (cet_pick_tpu/__main__.py:554-562)."""
+    parser = _host_parser("cet_pick_tpu_torch phoenix")
+    parser.add_argument("--input", required=True)
+    parser.add_argument("--port", type=int, default=7000)
+    a = parser.parse_args(argv)
+    from cet_pick_tpu_torch.viz.interactive import launch_phoenix
+
+    launch_phoenix(a.input, a.port)
+    input("Phoenix running; press Enter to exit.\n")
+
+
+def cmd_to_coords(argv):
+    """A Phoenix-exported selection -> training coordinates
+    (cet_pick_tpu/__main__.py:565-573)."""
+    parser = _host_parser("cet_pick_tpu_torch to-coords")
+    parser.add_argument("--input", required=True)
+    parser.add_argument("--output", required=True)
+    parser.add_argument("--if_double", action="store_true")
+    a = parser.parse_args(argv)
+    from cet_pick_tpu_torch.viz.interactive import (
+        interactive_to_training_coords,
+    )
+
+    interactive_to_training_coords(a.input, a.output, a.if_double)
+
+
+def cmd_sublabels(argv):
+    """Chosen cluster labels -> per-tomogram txts
+    (cet_pick_tpu/__main__.py:576-586)."""
+    parser = _host_parser("cet_pick_tpu_torch sublabels")
+    parser.add_argument("--input", required=True)
+    parser.add_argument("--out_path", required=True)
+    parser.add_argument(
+        "--use_classes", type=lambda s: [int(v) for v in s.split(",")],
+        required=True)
+    parser.add_argument("--if_double", action="store_true")
+    a = parser.parse_args(argv)
+    from cet_pick_tpu_torch.viz.interactive import select_sublabels
+
+    select_sublabels(a.input, a.out_path, a.use_classes, a.if_double)
+
+
+def cmd_visualize3d(argv):
+    """napari overlay volumes of the embedding colors
+    (cet_pick_tpu/__main__.py:589-624); the image list is read with every
+    value a string (``io/coords.read_image_list``)."""
+    parser = _host_parser("cet_pick_tpu_torch visualize3d")
+    parser.add_argument("--input", required=True, help="all_output_info.npz")
+    parser.add_argument("--color", required=True, help="all_colors.npy")
+    parser.add_argument("--dir_simsiam", required=True)
+    parser.add_argument("--image_txt", default=None)
+    parser.add_argument("--rec_dir", default=None)
+    parser.add_argument("--compress", action="store_true")
+    parser.add_argument("--order", default="xzy")
+    parser.add_argument("--ext", default=".rec")
+    a = parser.parse_args(argv)
+    if not a.image_txt and not a.rec_dir:
+        parser.error("one of --image_txt or --rec_dir is required "
+                     "(where to find the tomogram .rec files)")
+    import numpy as np
+
+    from cet_pick_tpu_torch.io.coords import read_image_list
+    from cet_pick_tpu_torch.io.loader import load_rec
+    from cet_pick_tpu_torch.viz.tomo3d import render_3d_hm
+
+    data = np.load(a.input)
+    names, coords = data["name"], data["coords"]
+    colors = np.load(a.color)
+    if a.image_txt:
+        il = read_image_list(a.image_txt)
+        pairs = zip(il["image_name"], il["rec_path"])
+    else:
+        pairs = ((nm, os.path.join(a.rec_dir, nm) + a.ext)
+                 for nm in np.unique(names))
+    for nm, rec_path in pairs:
+        if not os.path.exists(rec_path):
+            print(f"skipping {nm}: {rec_path} not found")
+            continue
+        rec = load_rec(rec_path, order=a.order, compress=a.compress)
+        render_3d_hm(rec, coords, colors, names, nm, a.dir_simsiam)
 
 
 def cmd_watch(argv):
@@ -488,7 +765,11 @@ def cmd_doctor(argv):
 COMMANDS = {"train": cmd_train, "test": cmd_test,
             "classify-test": cmd_classify_test, "watch": cmd_watch,
             "explore": cmd_explore, "classify": cmd_classify,
-            "embed": cmd_embed, "merge": cmd_merge, "pr-curve": cmd_pr_curve,
+            "embed": cmd_embed, "scan": cmd_scan,
+            "scan-finetune": cmd_scan_finetune, "plot2d": cmd_plot2d,
+            "phoenix": cmd_phoenix, "to-coords": cmd_to_coords,
+            "sublabels": cmd_sublabels, "visualize3d": cmd_visualize3d,
+            "merge": cmd_merge, "pr-curve": cmd_pr_curve,
             "remove-golds": cmd_remove_golds, "gen-files": cmd_gen_files,
             "flags": cmd_flags, "doctor": cmd_doctor}
 

@@ -11,7 +11,9 @@ The 3D families (convert.py:614-720): ``TomoRes3DRefNet`` (``res3dref_N``)
 takes the reference ``TomoRes3DNet`` names; ``TomoPickNet3D`` (``res3d_N``,
 ``p3d_N``), which has no reference layout, the port's module names. The
 exploration ``SimSiamEncoder`` takes the reference ``TomoResClassifier2D3D``
-/ ``2D`` names (convert.py:107-153, 482-539).
+/ ``2D`` names (convert.py:107-153, 482-539), and the SCAN
+``ScanClusteringModel`` the reference ``ClusteringModel``'s ``backbone.*`` /
+``cluster_head.{i}.*`` (cet_pick_tpu/__main__.py:876-887).
 Layout rules from flax:
 
   Conv2d  (kh, kw, in, out)         -> (out, in, kh, kw)
@@ -203,7 +205,9 @@ def state_dict_from_jax_tree(params, batch_stats) -> Dict[str, torch.Tensor]:
     """The port's state dict of any JAX detector or exploration encoder,
     its family, depth and heads read from the parameter tree: an encoder has
     ``trunk``; a ``unet_N`` / ``unetw_N`` has ``unet/down0..N-1``, a
-    ``TomoPickNet3D`` ``block0..N-1``."""
+    ``TomoPickNet3D`` ``block0..N-1``; a SCAN model has ``backbone``."""
+    if "backbone" in params:
+        return scan_state_dict_from_jax(params, batch_stats)
     if "trunk" in params:
         return simsiam_state_dict_from_jax(params, batch_stats)
     heads = [h for h in _HEADS if h in params]
@@ -308,26 +312,64 @@ def simsiam_state_dict_from_jax(params, batch_stats
     bn("proj.4", ("proj", "bn1"))
     dense("proj.6", ("proj", "fc2"), bias=False)
     bn("proj.7", ("proj", "bn2"), affine=False)
-    dense("pred.0", ("pred", "fc0"), bias=False)
-    bn("pred.1", ("pred", "bn0"))
-    dense("pred.3", ("pred", "fc1"))
+    if "pred" in params:  # a SCAN backbone has none
+        dense("pred.0", ("pred", "fc0"), bias=False)
+        bn("pred.1", ("pred", "bn0"))
+        dense("pred.3", ("pred", "fc1"))
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
-def load_simsiam_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+def scan_state_dict_from_jax(params, batch_stats
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX ``ScanClusteringModel`` variables -> the port's state dict in the
+    reference ``ClusteringModel`` layout: the backbone through
+    :func:`simsiam_state_dict_from_jax` under ``backbone.`` (it has no
+    ``pred``), each ``head{i}`` Dense as ``cluster_head.{i}`` (the mapping
+    of JAX's ``export-torch``, cet_pick_tpu/__main__.py:876-887)."""
+    sd = {"backbone." + k: v for k, v in simsiam_state_dict_from_jax(
+        params["backbone"], batch_stats.get("backbone", {})).items()}
+    i = 0
+    while f"head{i}" in params:
+        sd[f"cluster_head.{i}.weight"] = torch.from_numpy(np.array(
+            _get(params, (f"head{i}", "kernel")).T))
+        sd[f"cluster_head.{i}.bias"] = torch.from_numpy(np.array(
+            _get(params, (f"head{i}", "bias"))))
+        i += 1
+    return sd
+
+
+def load_simsiam_checkpoint(path: str, fill=None) -> Dict[str, torch.Tensor]:
     """A reference exploration ``.pth`` (``TomoResClassifier2D3D`` / ``2D``,
-    the inverse of JAX's ``simsiam_state_dict_to_flax``, convert.py:107-153)
-    or the port's own ``model_last.pth``, or a JAX checkpoint directory ->
-    the state dict for ``SimSiamEncoder``'s strict load, ``module.``
-    prefixes stripped. The reference's MoCo / SCAN wrappers and the
-    torchvision ImageNet trunk init (``load_simsiam_torch``,
-    convert.py:348-404) are not ported yet."""
+    the inverse of JAX's ``simsiam_state_dict_to_flax``, convert.py:107-153),
+    the port's own ``model_last.pth``, a JAX checkpoint directory, or a SCAN
+    ``ClusteringModel`` (the reference's, the port's ``scan_model_last.pth``
+    or JAX's ``scan_model_last/``), whose ``backbone.*`` is taken and its
+    cluster heads dropped, as ``load_simsiam_torch`` does
+    (convert.py:366-372) -> the state dict for ``SimSiamEncoder``'s strict
+    load, ``module.`` prefixes stripped.
+
+    ``fill``: a state dict (the model's own) whose ``pred.*`` entries stand
+    in for a ``pred`` head the file lacks, as JAX keeps the fresh init of a
+    head the checkpoint has not (convert.py:391-396): a SCAN backbone has no
+    ``pred``. Any other missing module stays missing, so the strict load
+    refuses a truncated file. The reference's MoCo wrapper and the
+    torchvision ImageNet trunk init come with the MoCo slice."""
     sd = read_any_checkpoint(path)[0]
+    if any(k.startswith("encoder_q.") for k in sd):
+        raise ValueError(
+            f"{path} is a reference MoCo checkpoint (encoder_q.*); the port "
+            f"reads it once MoCo is ported (`python -m cet_pick_tpu` reads "
+            f"it today)")
+    if any(k.startswith("backbone.") for k in sd):
+        sd = {k[len("backbone."):]: v for k, v in sd.items()
+              if k.startswith("backbone.")}
     if "proj.0.weight" not in sd:
         raise ValueError(
             f"{path} is not an exploration encoder checkpoint (no proj "
-            f"head); MoCo, SCAN and ImageNet-resnet18 checkpoints are not "
-            f"yet read by cet_pick_tpu_torch")
+            f"head); ImageNet-resnet18 checkpoints are not yet read by "
+            f"cet_pick_tpu_torch")
+    if fill is not None and not any(k.startswith("pred.") for k in sd):
+        sd.update({k: v for k, v in fill.items() if k.startswith("pred.")})
     return sd
 
 

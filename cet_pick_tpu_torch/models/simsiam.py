@@ -20,8 +20,10 @@ Modules keep the reference's names (``conv1``, ``bn1``,
 ``layer{s}.{b}.conv1|bn1|conv2|bn2|downsample.0|downsample.1``, ``fc``,
 ``proj.0/1/3/4/6/7``, ``pred.0/1/3``), so the state dict is the reference
 ``.pth`` layout. Layout is PyTorch's NCHW. BatchNorm keeps flax's running
-statistics (momentum 0.9, biased variance). The 3D-subvolume trunks
-(``vol`` mode) and the SCAN clustering model are not ported yet.
+statistics (momentum 0.9, biased variance). ``ScanClusteringModel`` is the
+SCAN stage's encoder with linear cluster heads, in the reference
+``ClusteringModel`` layout (``backbone.*``, ``cluster_head.{i}.*``). The
+3D-subvolume trunks (``vol`` mode) are not ported yet.
 """
 
 from __future__ import annotations
@@ -106,10 +108,13 @@ class SimSiamEncoder(nn.Module):
     """Shared trunk + fc + proj/pred heads (simsiam.py:383-437).
 
     mode '2d3d': inputs are (patch_2d, patch_3d) pairs -> features concat to
-    512 before fc. mode '2d': single patch -> 256 -> fc.
+    512 before fc. mode '2d': single patch -> 256 -> fc. ``pred=False``
+    leaves out the predictor head, as the SCAN model's backbone has none
+    (flax creates no parameters for a submodule that is never called).
     """
 
-    def __init__(self, head_conv: int = 128, mode: str = "2d3d"):
+    def __init__(self, head_conv: int = 128, mode: str = "2d3d",
+                 pred: bool = True):
         super().__init__()
         if mode not in ("2d3d", "2d"):
             raise NotImplementedError(
@@ -135,7 +140,7 @@ class SimSiamEncoder(nn.Module):
         # Sequential indices 0,1 / 3 (:600-605)
         self.pred = nn.Sequential(
             nn.Linear(d, d, bias=False), BatchNorm1d(d), nn.ReLU(),
-            nn.Linear(d, d))
+            nn.Linear(d, d)) if pred else None
         flax_init_(self)
 
     def trunk(self, x):
@@ -181,3 +186,45 @@ def create_simsiam(config) -> SimSiamEncoder:
             f"--dtype {config.dtype}: the port runs float32 only so far")
     return SimSiamEncoder(head_conv=config.head_conv,
                           mode=explore_mode(config))
+
+
+class ScanClusteringModel(nn.Module):
+    """SimSiam backbone + linear cluster head(s) for the SCAN stage
+    (simsiam.py:457-497; reference simsiam_model_2d3d.py:847-877
+    ``ClusteringModel``). ``features`` runs trunk -> fc -> proj with no
+    detach (the reference's forward has none either), so the SCAN loss
+    trains the whole network unless the caller detaches. The state dict is
+    the reference layout: ``backbone.*`` (no ``pred``) and
+    ``cluster_head.{i}.{weight,bias}``."""
+
+    def __init__(self, head_conv: int = 128, mode: str = "2d3d",
+                 n_clusters: int = 3, n_heads: int = 1):
+        super().__init__()
+        self.backbone = SimSiamEncoder(head_conv=head_conv, mode=mode,
+                                       pred=False)
+        self.cluster_head = nn.ModuleList(
+            nn.Linear(head_conv, n_clusters) for _ in range(n_heads))
+        flax_init_(self.cluster_head)
+
+    def features(self, x2d, x3d=None):
+        """Projection features with gradients (forward_pass='backbone')."""
+        return self.backbone.proj(self.backbone.encode(x2d, x3d))
+
+    def head_logits(self, feats):
+        """Per-head cluster logits (forward_pass='head')."""
+        return [h(feats) for h in self.cluster_head]
+
+    def forward(self, x2d, x3d=None):
+        """forward_pass='default': features -> list of per-head logits."""
+        return self.head_logits(self.features(x2d, x3d))
+
+
+def create_scan_model(config, n_clusters, n_heads=1) -> ScanClusteringModel:
+    """arch 'simsiam2d3d_18' / 'simsiam2d_18' -> ScanClusteringModel (the
+    scan / scan2d3d tasks, simsiam.py:500-507)."""
+    if config.dtype != "float32":
+        raise NotImplementedError(
+            f"--dtype {config.dtype}: the port runs float32 only so far")
+    mode = "2d3d" if "2d3d" in config.arch else "2d"
+    return ScanClusteringModel(head_conv=config.head_conv, mode=mode,
+                               n_clusters=n_clusters, n_heads=n_heads)

@@ -131,8 +131,8 @@ def prepare_explore(config, log_fn=print, device="cuda"):
     state = TrainState(model, config.lr, optimizer=torch.optim.SGD(
         model.parameters(), lr=config.lr))
     if config.load_model:
-        model.load_state_dict(load_simsiam_checkpoint(config.load_model),
-                              strict=True)
+        model.load_state_dict(load_simsiam_checkpoint(
+            config.load_model, fill=model.state_dict()), strict=True)
         if config.resume:
             load_checkpoint(config.load_model, state, resume=True)
         log_fn(f"loaded checkpoint from {config.load_model} "

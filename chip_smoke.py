@@ -130,6 +130,25 @@ The slice of ``watch``, ``classify``, freeze, ``--profile_dir`` and
              moved, the row gram launches equal to the steps, and the
              kernel against its plain version on the last step's features
 
+The slice of exploration's clustering and selection adds, after
+``embed`` (2d3d), on its ``all_output_info.npz`` (``pred`` 128 wide, every
+test-split candidate) and ``explore``'s ``model_last.pth``:
+
+- cluster    plot2d's k-means (K 256, 300 Lloyd iterations, k-means++ from
+             seed 1234) and SCAN's kNN (k 20, self excluded), on the card
+             and on the CPU from one init: assignments agreeing on >=
+             99.9%, centroids within 1e-4 of the largest, inertia within
+             1e-5 relative, kNN rows equal outside a 1e-5 tie band; device
+             ms of each, the clusters' purity against the planted classes
+- scan       ``python -m cet_pick_tpu_torch scan --n_clusters 2`` (500
+             steps, batch 128): losses finite, both clusters used,
+             neighbour consistency > 0.5; purity reported
+- scan_finetune ``scan-finetune`` (2d3d, batch 64, 2 clusters, 3 heads,
+             300 SCAN + 100 self-label steps): losses finite, best head in
+             [0, 3), ``scan_model_last.pth`` read back strict, consistency
+             > 0.5, one step card against CPU within the explore bars;
+             step ms, samples/s, purity
+
 The model phase also runs ``res3d_2`` and ``res3dref_18``: the card's
 untiled forward against the CPU's, and one untiled forward of a
 256x512x512 volume with its device ms and peak memory. The kernels phase
@@ -1614,7 +1633,8 @@ def explore_state_errors(card, cpu):
                      math.sqrt(var[k[:-len("running_mean")]]))
             for k in sd_c if k.endswith("running_mean")),
         "grad_rel": max(_rel_err(card["grads"][k], g)
-                        for k, g in cpu["grads"].items() if k != "fc.bias"),
+                        for k, g in cpu["grads"].items()
+                        if not k.endswith("fc.bias")),
         "param_rel": max(
             _rel_err(sd_g[k], p, max(1.0, float(p.abs().max())))
             for k, p in sd_c.items()
@@ -1934,6 +1954,19 @@ def explore_patch_flop(head_conv, hw=36):
     return flop + 0.5 * 2.0 * (512 * head_conv + 5 * head_conv ** 2)
 
 
+def near_planted(names, coords, planted):
+    """(indices, planted classes) of the candidates within NN_RADIUS px of
+    a planted centre, each with its nearest centre's class."""
+    close, labels = [], []
+    for i, (name, c) in enumerate(zip(names, coords)):
+        ctr = np.array([p[:3] for p in planted[str(name)]], np.float64)
+        dist = np.linalg.norm(ctr - c.astype(np.float64), axis=1)
+        if dist.min() < NN_RADIUS:
+            close.append(i)
+            labels.append(planted[str(name)][int(dist.argmin())][3])
+    return np.array(close, np.int64), np.array(labels, np.int64)
+
+
 def phase_embed(work, planted, sizes, mode="2d3d"):
     """``python -m cet_pick_tpu_torch embed`` on an explore run's
     ``model_last.pth``: the npz's keys, dtypes and shapes, ``proj`` finite,
@@ -1964,13 +1997,7 @@ def phase_embed(work, planted, sizes, mode="2d3d"):
           and bool(np.isfinite(out["proj"]).all()))
     emb = out["proj"].astype(np.float64)
     emb /= np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
-    labels, close = [], []
-    for i, (name, c) in enumerate(zip(out["name"], out["coords"])):
-        ctr = np.array([p[:3] for p in planted[str(name)]], np.float64)
-        dist = np.linalg.norm(ctr - c.astype(np.float64), axis=1)
-        if dist.min() < NN_RADIUS:
-            close.append(i)
-            labels.append(planted[str(name)][int(dist.argmin())][3])
+    close, labels = near_planted(out["name"], out["coords"], planted)
     agree = None
     if len(set(labels)) == 2:
         e = emb[close]
@@ -1982,13 +2009,288 @@ def phase_embed(work, planted, sizes, mode="2d3d"):
            "dtypes": dtypes, "test_split_patches": n,
            "forward_s": float(m.group(1)),
            "patches_per_s": int(m.group(2)) / float(m.group(1)),
-           "near_planted": len(close), "classes_near": sorted(set(labels)),
+           "near_planted": len(close),
+           "classes_near": sorted(set(labels.tolist())),
            "nn_label_agreement": agree, "cli_wall_s": wall,
            "launches": launches}
     emit(rec)
     if not ok:
         raise RuntimeError(f"{phase}: bad all_output_info.npz: {shapes}, "
                            f"{dtypes}, expected {n} rows")
+    return rec
+
+
+# exploration's clustering and selection (PR 9): plot2d's k-means (256
+# centroids, 300 Lloyd iterations, seed 1234; cet_pick_tpu/viz/plot2d.py:
+# 37-52) and SCAN's kNN (k 20, self excluded) on the 2d3d embedding, card
+# against CPU from one init. Bars: assignments agreeing on >= 99.9% of the
+# points, centroids within 1e-4 of the largest centroid value, inertia
+# within 1e-5 relative (Lloyd runs in float64: in f32 one flipped near-tie
+# moved centroids for every later iteration, and the two ended 98.1% in
+# agreement, PERF.md PR 9); kNN rows equal outside a 1e-5 relative tie band
+# between the k-th and (k+1)-th distances.
+CLUSTER_K = 256
+CLUSTER_ITERS = 300
+CLUSTER_AGREE = 0.999
+CLUSTER_CENT_REL = 1e-4
+CLUSTER_INERTIA_REL = 1e-5
+KNN_K = 20
+KNN_BAND = 1e-5
+# ``scan``: 2 clusters, 500 steps (its default) of batch 128; the
+# ``scan-finetune`` run: 2d3d at its defaults (bbox 36, batch 64), 2
+# clusters, 3 heads, 300 SCAN + 100 self-label steps
+SCAN_CONSISTENCY_GATE = 0.5
+SCAN_FT_ARGS = ["--nclusters", "2", "--nheads", "3", "--steps", "300",
+                "--selflabel_steps", "100", "--batch_size", "64"]
+SCAN_FT_BATCH = 64
+SCAN_FT_TIMED_STEPS = 20
+
+
+def purity(assign, planted_idx, planted_cls):
+    """The share of the candidates near a planted centre whose cluster's
+    majority planted class is their own (None without such candidates)."""
+    if len(planted_idx) == 0:
+        return None
+    a = np.asarray(assign)[planted_idx]
+    hits = sum(np.bincount(planted_cls[a == c]).max() for c in np.unique(a))
+    return float(hits / len(planted_idx))
+
+
+def knn_agreement(want, got, k, band=KNN_BAND):
+    """(rows compared, rows whose neighbour sets differ, rows compared in
+    order, rows whose order differs) of a card kNN ``got`` (indices (Q, k))
+    against a CPU one ``want`` of k + 1 neighbours: a row's set is compared
+    where its k-th and (k+1)-th distances lie more than ``band`` (relative)
+    apart, its order where every two neighbouring distances of the k + 1
+    do."""
+    d, i = want
+    gap = (d[:, 1:] - d[:, :-1]) > band * np.abs(d[:, 1:])
+    sets = gap[:, k - 1]
+    ordered = gap.all(axis=1)
+    set_bad = sum(set(i[r, :k]) != set(got[r]) for r in np.where(sets)[0])
+    order_bad = int((i[ordered, :k] != got[ordered]).any(axis=1).sum())
+    return int(sets.sum()), int(set_bad), int(ordered.sum()), order_bad
+
+
+def phase_cluster(work, planted):
+    """plot2d's k-means and SCAN's kNN on the 2d3d embedding's ``pred``
+    (every test-split candidate, 128 wide), on the card and on the CPU:
+    the whole ``kmeans_fit`` (k-means++ on the card, then Lloyd) timed on
+    the card; Lloyd from the card's init on both; kNN on both. Gates as
+    the CLUSTER_* / KNN_* bars say; the purity of the 256 clusters against
+    the planted classes is reported."""
+    from cet_pick_tpu_torch.ops import kmeans as K
+
+    npz = np.load(os.path.join(work, "exp", "simsiam2d3d", "explore",
+                               "all_output_info.npz"))
+    x = torch.from_numpy(npz["pred"].astype(np.float32))
+    xd = x.to(DEVICE)
+    reset_launches()
+    fit_ms = time_ms(lambda: K.kmeans_fit(xd, CLUSTER_K, CLUSTER_ITERS), 1)
+    gen = torch.Generator(device=DEVICE).manual_seed(1234)
+    init = K.kmeans_plus_plus(xd, CLUSTER_K, gen)
+    card = K.lloyd(xd, init, CLUSTER_ITERS)
+    lloyd_ms = time_ms(lambda: K.lloyd(xd, init, CLUSTER_ITERS), 1)
+    knn_card = K.knn_search(xd, xd, k=KNN_K, exclude_self=True)
+    knn_ms = time_ms(lambda: K.knn_search(xd, xd, k=KNN_K,
+                                          exclude_self=True), 3)
+    launches = read_launches()
+    t0 = time.perf_counter()
+    cpu = K.lloyd(x, init.cpu(), CLUSTER_ITERS)
+    t1 = time.perf_counter()
+    knn_cpu = K.knn_search(x, x, k=KNN_K + 1, exclude_self=True)
+    t2 = time.perf_counter()
+    agree = float((card[1].cpu() == cpu[1]).double().mean())
+    cent_rel = _rel_err(card[0].cpu(), cpu[0])
+    inertia_rel = abs(float(card[2]) - float(cpu[2])) / float(cpu[2])
+    sets, set_bad, ordered, order_bad = knn_agreement(
+        (knn_cpu[0].numpy(), knn_cpu[1].numpy()), knn_card[1].cpu().numpy(),
+        KNN_K)
+    idx, cls = near_planted(npz["name"], npz["coords"], planted)
+    rec = {"phase": "cluster", "points": len(x), "dim": x.shape[1],
+           "k": CLUSTER_K, "iters": CLUSTER_ITERS,
+           "kmeans_fit_ms": fit_ms, "lloyd_ms": lloyd_ms,
+           "cpu_lloyd_s": t1 - t0, "assign_agreement": agree,
+           "centroid_rel_err": cent_rel, "inertia_rel_err": inertia_rel,
+           "inertia": float(card[2]), "empty_clusters": int(
+               CLUSTER_K - len(torch.unique(card[1]))),
+           "knn_k": KNN_K, "knn_ms": knn_ms, "cpu_knn_s": t2 - t1,
+           "knn_rows_set_compared": sets, "knn_rows_set_differ": set_bad,
+           "knn_rows_order_compared": ordered,
+           "knn_rows_order_differ": order_bad,
+           "near_planted": len(idx),
+           "planted_purity": purity(card[1].cpu().numpy(), idx, cls),
+           "launches": launches}
+    emit(rec)
+    if not (agree >= CLUSTER_AGREE and cent_rel <= CLUSTER_CENT_REL
+            and inertia_rel <= CLUSTER_INERTIA_REL and set_bad == 0
+            and order_bad == 0 and sets > 0.9 * len(x)):
+        CHECK_FAILURES.append("cluster: card != CPU")
+    return rec
+
+
+def _log_metrics(lines, prefix):
+    """[{metric: value}] of the ``<prefix> step N: k=v ...`` log lines."""
+    return [{k: float(v) for k, v in re.findall(r"(\w+)=(\S+)", ln)}
+            for ln in lines if ln.startswith(prefix)]
+
+
+def phase_scan(work, planted):
+    """``python -m cet_pick_tpu_torch scan`` on the 2d3d embedding: 2
+    clusters, its 500 default steps. Gates: losses finite, both clusters
+    used, neighbour consistency > SCAN_CONSISTENCY_GATE; purity against the
+    planted classes reported."""
+    src = os.path.join(work, "exp", "simsiam2d3d", "explore",
+                       "all_output_info.npz")
+    out_npz = os.path.join(work, "scan_labels.npz")
+    lines, launches, wall = run_cli(["scan", "--input", src, "--out",
+                                     out_npz, "--n_clusters", "2",
+                                     "--device", DEVICE])
+    logged = _log_metrics(lines, "scan step")
+    m = next(re.search(r"consistency ([0-9.]+), (\d+) clusters", ln)
+             for ln in lines if "neighbor consistency" in ln)
+    t = next(re.search(r"neighbors ([0-9.]+)s, head ([0-9.]+)s", ln)
+             for ln in lines if ln.startswith("scan:"))
+    out = np.load(out_npz)
+    idx, cls = near_planted(out["name"], out["coords"], planted)
+    rec = {"phase": "scan", "points": len(out["label"]), "steps": 500,
+           "batch": 128, "logged": logged,
+           "neighbor_consistency": float(m.group(1)),
+           "clusters_used": int(m.group(2)),
+           "neighbors_s": float(t.group(1)), "head_s": float(t.group(2)),
+           "keys": out.files,
+           "planted_purity": purity(out["label"], idx, cls),
+           "cli_wall_s": wall, "launches": launches}
+    emit(rec)
+    finite = bool(logged) and all(math.isfinite(v) for d in logged
+                                  for v in d.values())
+    if not (finite and rec["clusters_used"] == 2
+            and rec["neighbor_consistency"] > SCAN_CONSISTENCY_GATE
+            and out.files == ["label", "name", "coords"]):
+        CHECK_FAILURES.append("scan")
+    return rec
+
+
+def scan_step_card_vs_cpu(model_sd, work):
+    """One full-mode SCAN fine-tune step from one state (the trained
+    ``scan_model_last.pth``) on one batch of 64 anchor / neighbour pairs of
+    the 2d3d patches, on the card and on the CPU, with the explore model's
+    bars. The comparison step uses plain SGD at lr 1e-3, as the explore
+    check does: Adam's first step moves each weight by about +-lr, and its
+    sign flips with the rounding of a gradient that is zero but for it.
+    Then the step as it runs (Adam, lr 1e-4) timed on the card."""
+    from cet_pick_tpu_torch.models.simsiam import ScanClusteringModel
+    from cet_pick_tpu_torch.train.scan import make_scan_finetune_step
+    from cet_pick_tpu_torch.train.state import TrainState
+
+    npz = np.load(os.path.join(work, "exp", "simsiam2d3d", "explore",
+                               "all_output_info.npz"))
+    p2, p3 = ((p - p.mean()) / p.std() for p in (
+        np.asarray(npz[k], np.float32) for k in ("subvols_2d", "subvol")))
+    rng = np.random.default_rng(5)
+    a, n = (rng.integers(0, len(p2), SCAN_FT_BATCH) for _ in range(2))
+    batch = [torch.from_numpy(np.ascontiguousarray(p[i][:, None]))
+             for i in (a, n) for p in (p2, p3)]
+    out = {}
+    for dev in ("cpu", DEVICE):
+        model = ScanClusteringModel(head_conv=128, mode="2d3d",
+                                    n_clusters=2, n_heads=3)
+        model.load_state_dict(model_sd, strict=True)
+        model.to(dev)
+        state = TrainState(model, 1e-3, optimizer=torch.optim.SGD(
+            model.parameters(), lr=1e-3))
+        met = make_scan_finetune_step(model)(state,
+                                             *(t.to(dev) for t in batch))
+        out[dev] = {"loss": met["total_loss"].cpu(),
+                    "head_losses": met["head_losses"].cpu(),
+                    "grads": {k: p.grad.cpu()
+                              for k, p in model.named_parameters()},
+                    "state": {k: v.cpu() for k, v in
+                              model.state_dict().items()}}
+    cpu, card = out["cpu"], out[DEVICE]
+    errs = {k: float((card[k] - cpu[k]).abs().max())
+            for k in ("loss", "head_losses")}
+    errs.update(explore_state_errors(card, cpu))
+    bars = {"loss": EXPLORE_LOSS_TOL, "head_losses": EXPLORE_LOSS_TOL,
+            "bn_var_rel": EXPLORE_STAT_TOL, "bn_mean_rel": EXPLORE_STAT_TOL,
+            "grad_rel": EXPLORE_GRAD_TOL, "param_rel": EXPLORE_PARAM_TOL}
+    model.load_state_dict(model_sd, strict=True)
+    state = TrainState(model, 1e-4)
+    step = make_scan_finetune_step(model)
+    dev_batch = [t.to(DEVICE) for t in batch]
+    for _ in range(3):
+        step(state, *dev_batch)
+    ms = time_ms(lambda: step(state, *dev_batch), SCAN_FT_TIMED_STEPS)
+    return errs, bars, ms
+
+
+def phase_scan_finetune(work, planted):
+    """``python -m cet_pick_tpu_torch scan-finetune`` (2d3d) from the
+    explore run's ``model_last.pth`` over the test split: SCAN_FT_ARGS.
+    Gates: losses finite, best_head in [0, 3), ``scan_model_last.pth`` read
+    back strict, neighbour consistency > SCAN_CONSISTENCY_GATE, one step
+    card against CPU within the explore bars. Reported: the step's device
+    ms and samples/s (anchors), the stage times, the purity against the
+    planted classes."""
+    from cet_pick_tpu_torch.models.simsiam import ScanClusteringModel
+
+    ckpt = os.path.join(work, "exp", "simsiam2d3d", "explore",
+                        "model_last.pth")
+    out_npz = os.path.join(work, "scan_finetune.npz")
+    lines, launches, wall = run_cli(
+        ["scan-finetune", "--exp_id", "scan_finetune", "--data_dir", work,
+         "--root_dir", work, "--device", DEVICE, "--test_img_txt",
+         "explore_images.txt", "--load_model", ckpt, "--out", out_npz,
+         *SCAN_FT_ARGS])
+    save = os.path.join(work, "exp", "scan2d3d", "scan_finetune")
+    scan_logged = _log_metrics(lines, "scan step")
+    sl_logged = _log_metrics(lines, "selflabel step")
+    m = next(re.search(r"consistency ([0-9.]+), (\d+) clusters", ln)
+             for ln in lines if "neighbor consistency" in ln)
+    t = next(re.search(r"build ([0-9.]+)s, embed \+ neighbors ([0-9.]+)s, "
+                       r"scan ([0-9.]+)s", ln)
+             for ln in lines if ln.startswith("scan-finetune:"))
+    out = np.load(out_npz)
+    ck = torch.load(os.path.join(save, "scan_model_last.pth"),
+                    map_location="cpu", weights_only=True)
+    try:
+        ScanClusteringModel(head_conv=128, mode="2d3d", n_clusters=2,
+                            n_heads=3).load_state_dict(ck["state_dict"],
+                                                       strict=True)
+        strict = True
+    except RuntimeError:
+        strict = False
+    with open(os.path.join(save, "best_head.json")) as f:
+        best_json = json.load(f)["best_loss_head"]
+    errs, bars, step_ms = scan_step_card_vs_cpu(ck["state_dict"], work)
+    idx, cls = near_planted(out["name"], out["coords"], planted)
+    rec = {"phase": "scan_finetune", "points": len(out["label"]),
+           "args": SCAN_FT_ARGS, "scan_logged": scan_logged,
+           "selflabel_logged": sl_logged,
+           "neighbor_consistency": float(m.group(1)),
+           "clusters_used": int(m.group(2)),
+           "best_head": int(out["best_head"]),
+           "dataset_build_s": float(t.group(1)),
+           "embed_neighbors_s": float(t.group(2)),
+           "scan_s": float(t.group(3)), "checkpoint_strict": strict,
+           "step_ms": step_ms,
+           "samples_per_s": 1e3 * SCAN_FT_BATCH / step_ms,
+           "card_vs_cpu": errs, "bars": bars,
+           "planted_purity": purity(out["label"], idx, cls),
+           "cli_wall_s": wall, "launches": launches}
+    emit(rec)
+    finite = bool(scan_logged) and bool(sl_logged) and all(
+        math.isfinite(v) for d in scan_logged + sl_logged
+        for v in d.values())
+    fails = [k for k, v in errs.items() if not v <= bars[k]]
+    if fails:
+        CHECK_FAILURES.append(f"scan_finetune: card != CPU at {fails}")
+    if not (finite and 0 <= rec["best_head"] < 3 and strict
+            and best_json == rec["best_head"]
+            and ck["best_loss_head"] == rec["best_head"]
+            and rec["neighbor_consistency"] > SCAN_CONSISTENCY_GATE
+            and out.files == ["label", "name", "coords", "best_head"]):
+        CHECK_FAILURES.append("scan_finetune")
     return rec
 
 
@@ -2434,6 +2736,9 @@ def main(argv=None):
         phase_explore(work)
         phase_explore_breakdown()
         phase_embed(work, explore_data, sizes)
+        phase_cluster(work, explore_data)
+        phase_scan(work, explore_data)
+        phase_scan_finetune(work, explore_data)
         phase_explore(work, "2d", EXPLORE_2D_EPOCHS)
         phase_embed(work, explore_data, sizes, "2d")
     if CHECK_FAILURES:

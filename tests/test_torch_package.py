@@ -71,8 +71,12 @@ def test_unported_commands_exit_nonzero(cmd, capsys):
     far are ported."""
     for ported in ("classify-test", "explore", "embed", "watch", "classify",
                    "merge", "pr-curve", "remove-golds", "gen-files", "flags",
-                   "doctor"):
+                   "doctor", "scan", "scan-finetune", "plot2d", "phoenix",
+                   "to-coords", "sublabels", "visualize3d"):
         assert ported not in NOT_PORTED and ported in COMMANDS
+    assert set(NOT_PORTED) == {"moco", "fewshot", "denoise",
+                               "extract-spectrum", "match-spectrum",
+                               "backproject", "export-torch", "import-torch"}
     if cmd == "train":
         assert cmd not in NOT_PORTED
         for task in ("simsiam", "denoise"):
