@@ -37,13 +37,24 @@ Ported so far:
                  per candidate; the image list's ``tilt_path`` /
                  ``angle_path`` columns, tilts read as zxy and recs as xzy)
                  or ``--task simsiam3d --arch simsiam2d_18`` (z-slice
-                 patches only, ``--order``); plain SGD, cosine LR; writes
-                 ``model_last.pth`` under ``<root_dir>/exp/<task>/<exp_id>``
+                 patches only, ``--order``) or ``--task simsiam --arch
+                 simsiam_18`` (``--vol_size`` subvolumes, 8x64x64 by
+                 default; ``simsiamref_18`` / ``moco3dref_18`` are the
+                 reference's subvolume encoders); plain SGD, cosine LR;
+                 writes ``model_last.pth`` under
+                 ``<root_dir>/exp/<task>/<exp_id>``
+  moco           MoCo exploration training (reference moco_main.py): a
+                 momentum key encoder and a queue of 1024 negatives, on
+                 the explore data in 2d (default ``--arch simsiam2d_18``),
+                 2d3d or vol mode (``--arch moco3d_18``); ``--moco_symmetric``
+                 for the two-way loss; ``model_last.pth`` holds both
+                 encoders and the queue
   embed          embedding extraction (reference simsiam_test_hm_2d3d.py):
                  ``all_output_info.npz`` (proj, pred, name, coords, subvol[,
                  subvols_2d]) from ``--load_model`` (default
                  ``model_last.pth`` of the experiment; a reference
-                 exploration ``.pth`` loads too)
+                 exploration ``.pth``, a MoCo run's query encoder and a
+                 JAX ``moco_state.msgpack`` directory load too)
   scan           SCAN clustering of ``embed``'s ``pred`` vectors (kNN
                  neighbours mined on the device, a linear head trained with
                  the SCAN loss): ``--out`` npz with label / name / coords
@@ -105,7 +116,7 @@ from cet_pick_tpu_torch.config import Config
 
 # the JAX package's other commands, in its order (cet_pick_tpu/__main__.py)
 NOT_PORTED = (
-    "moco", "fewshot", "denoise", "extract-spectrum", "match-spectrum",
+    "fewshot", "denoise", "extract-spectrum", "match-spectrum",
     "backproject", "export-torch", "import-torch",
 )
 
@@ -207,21 +218,19 @@ def cmd_classify_test(argv):
     run_classify_test(cfg, device=args.device)
 
 
-EXPLORE_TASKS = ("simsiam2d3d", "simsiam3d")
+EXPLORE_TASKS = ("simsiam2d3d", "simsiam3d", "simsiam", "moco")
 
 
 def _explore_config(prog, defaults, argv):
-    """(args, config) of ``explore`` / ``embed``; None where the task or the
-    arch asks for what is not ported yet (the 3D-subvolume mode, MoCo)."""
-    from cet_pick_tpu_torch.models.simsiam import explore_mode
-
+    """(args, config) of ``explore`` / ``moco`` / ``embed``; None where the
+    task or the dtype asks for what is not ported yet (bfloat16)."""
     args = _parser(prog, defaults).parse_args(argv)
     cfg = config_from_args(args)
-    if cfg.task not in EXPLORE_TASKS or explore_mode(cfg) == "vol":
-        print(f"{prog.split()[-1]} --task {cfg.task} --arch {cfg.arch} is "
-              f"not yet ported to cet_pick_tpu_torch (it runs --task "
-              f"simsiam2d3d --arch simsiam2d3d_18 and --task simsiam3d "
-              f"--arch simsiam2d_18); run it with `python -m cet_pick_tpu`")
+    if cfg.task not in EXPLORE_TASKS or cfg.dtype != "float32":
+        print(f"{prog.split()[-1]} --task {cfg.task} --dtype {cfg.dtype} is "
+              f"not yet ported to cet_pick_tpu_torch (it runs the tasks "
+              f"{', '.join(EXPLORE_TASKS)} in float32); run it with "
+              f"`python -m cet_pick_tpu`")
         return args, None
     return args, cfg
 
@@ -252,9 +261,38 @@ def cmd_explore(argv):
     logger.close()
 
 
+def cmd_moco(argv):
+    """MoCo exploration training (cet_pick_tpu/__main__.py:208-229): the
+    explore data in 2d (default), 2d3d or vol mode, one device."""
+    args, cfg = _explore_config(
+        "cet_pick_tpu_torch moco",
+        Config(task="moco", arch="simsiam2d_18", bbox=36, batch_size=128,
+               lr=1e-3, cosine=True, num_epochs=20, head_conv=256), argv)
+    if cfg is None:
+        return 2
+    if not os.path.exists(os.path.join(cfg.data_dir, cfg.train_img_txt)):
+        raise FileNotFoundError(os.path.join(cfg.data_dir, cfg.train_img_txt))
+    from cet_pick_tpu_torch.data.explore_dataset import ExploreDataset
+    from cet_pick_tpu_torch.infer.detector import set_float32_precision
+    from cet_pick_tpu_torch.train.moco import prepare_moco, train_moco
+    from cet_pick_tpu_torch.utils.logger import Logger
+
+    set_float32_precision(cfg.dtype)
+    prepared = prepare_moco(cfg, device=args.device)  # fails fast
+    logger = Logger(cfg)
+    t0 = time.perf_counter()
+    dataset = ExploreDataset(cfg, "train", device=prepared["device"])
+    logger.log(f"dataset build: {time.perf_counter() - t0:.3f}s "
+               f"({len(dataset)} training samples)")
+    train_moco(cfg, dataset, prepared, log_fn=logger.log)
+    logger.close()
+
+
 def cmd_embed(argv):
     """Embedding extraction to ``all_output_info.npz``
-    (cet_pick_tpu/__main__.py:232-297)."""
+    (cet_pick_tpu/__main__.py:232-297) from any checkpoint
+    ``load_simsiam_checkpoint`` reads; a MoCo run's embeds with its query
+    encoder."""
     args, cfg = _explore_config(
         "cet_pick_tpu_torch embed",
         Config(task="simsiam2d3d", arch="simsiam2d3d_18", bbox=36), argv)
@@ -764,7 +802,8 @@ def cmd_doctor(argv):
 
 COMMANDS = {"train": cmd_train, "test": cmd_test,
             "classify-test": cmd_classify_test, "watch": cmd_watch,
-            "explore": cmd_explore, "classify": cmd_classify,
+            "explore": cmd_explore, "moco": cmd_moco,
+            "classify": cmd_classify,
             "embed": cmd_embed, "scan": cmd_scan,
             "scan-finetune": cmd_scan_finetune, "plot2d": cmd_plot2d,
             "phoenix": cmd_phoenix, "to-coords": cmd_to_coords,

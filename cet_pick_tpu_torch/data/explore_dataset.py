@@ -1,5 +1,5 @@
-"""Exploration (SimSiam) datasets: DoG-mined patches from tomograms (+tilts)
-— port of ``cet_pick_tpu/data/explore_dataset.py`` (2d3d and 3d modes).
+"""Exploration (SimSiam / MoCo) datasets: DoG-mined patches from tomograms
+(+tilts) or subvolumes — port of ``cet_pick_tpu/data/explore_dataset.py``.
 
 Host numpy as in JAX, apart from the DoG response, which runs on the
 dataset's ``device`` (ops/dog.py). The reference's exploration data layer
@@ -18,9 +18,12 @@ mode, and particle_pre_2d_proj_new2d3d.py:70-91 for sampling):
   offsets (+z, -z, -x-z, +y-z) (:191-215) — training pairs the anchor with a
   random member;
 * dataset-level mean/std of the 2d and 3d patch populations are recorded for
-  normalization (:227-230), applied on the device by ops/augment.py.
-
-The 3D-subvolume mode (``vol``, task ``simsiam``) is not ported yet.
+  normalization (:227-230), applied on the device by ops/augment.py;
+* vol mode (task ``simsiam``, arches ``simsiam_N`` / ``moco3d_N`` /
+  ``*ref_N``): a ``vol_size`` subvolume around every DoG candidate whose
+  crop fits the volume (explore_dataset.py:294-330); both training views
+  are the same subvolume, told apart by the device pipeline's draws, and
+  each subvolume is z-normalized there (no population statistics).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ class ExploreDataset:
     AUG_OFFSETS = ((0, 0, 1), (0, 0, -1), (-1, 0, -1), (0, 1, -1))
 
     def __init__(self, config, split="train", low=-20.0, up=20.0,
-                 images=None, tilts=None, angles=None, device="cpu"):
+                 images=None, tilts=None, angles=None, device="cuda"):
         from cet_pick_tpu_torch.models.simsiam import explore_mode
 
         self.config = config
@@ -65,14 +68,15 @@ class ExploreDataset:
         # dataset-internal mode names predate the model helper: its '2d'
         # (single z-slice patches) is this class's historical '3d'
         m = explore_mode(config)
-        if m == "vol":
-            raise NotImplementedError(
-                "the 3D-subvolume exploration mode (--task simsiam, arch "
-                "simsiam_N / moco3d_N) is not yet ported to cet_pick_tpu_torch")
         self.mode = "3d" if m == "2d" else m
         self.bbox = int(config.bbox)
+        self.vol_size = tuple(int(s) for s in config.vol_size)
         self.low, self.up = low, up
-        self.device = device  # where the DoG response runs
+        # where the DoG response runs: the card unless the caller asks for
+        # the CPU; checked before any volume is read
+        from cet_pick_tpu_torch.infer.detector import resolve_device
+
+        self.device = resolve_device(device)
 
         if images is None:
             images, tilts, angles = self._load_from_lists()
@@ -84,14 +88,25 @@ class ExploreDataset:
         self.patches_3d: List[np.ndarray] = []   # anchor slice patches
         self.aug_sets_2d: List[List[np.ndarray]] = []
         self.aug_sets_3d: List[List[np.ndarray]] = []
+        self.subvols: List[np.ndarray] = []      # vol mode: (vz, vy, vx) crops
         self.coords: List[np.ndarray] = []
         self.names: List[str] = []
         for name in images:
-            self._mine_tomogram(
-                name, images[name],
-                tilts.get(name) if tilts else None,
-                angles.get(name) if angles else None,
-            )
+            if self.mode == "vol":
+                self._mine_tomogram_vol(name, images[name])
+            else:
+                self._mine_tomogram(
+                    name, images[name],
+                    tilts.get(name) if tilts else None,
+                    angles.get(name) if angles else None,
+                )
+
+        if self.mode == "vol":
+            # z-normalized per sample on the device (ops/augment.py)
+            self.mean_3d, self.std_3d = 0.0, 1.0
+            self.mean_2d, self.std_2d = 0.0, 1.0
+            self.num_samples = len(self.subvols)
+            return
 
         if self.patches_3d:
             stack3d = np.stack(self.patches_3d)
@@ -243,6 +258,37 @@ class ExploreDataset:
         denom = np.where(hi > lo, hi - lo, 1.0)
         return (p - lo[:, None, None]) / denom[:, None, None], valid
 
+    def _mine_tomogram_vol(self, name, rec):
+        """``vol_size`` subvolumes centred on the DoG candidates whose crop
+        fits the volume, gathered with one strided fancy-index
+        (explore_dataset.py:294-330)."""
+        d, h, w = rec.shape
+        vz, vy, vx = self.vol_size
+        if d < vz or h < vy or w < vx:
+            return
+        scores, positions = dog_candidates_pyramid(rec, sigmas=self.sigmas,
+                                                   device=self.device)
+        if positions.shape[0] == 0:
+            return
+        pos = np.asarray(positions)
+        x = pos[:, 0].astype(np.int64)
+        y = pos[:, 1].astype(np.int64)
+        z = pos[:, 2].astype(np.int64)
+        keep = (
+            (z - vz // 2 >= 0) & (z - vz // 2 + vz <= d)
+            & (y - vy // 2 >= 0) & (y - vy // 2 + vy <= h)
+            & (x - vx // 2 >= 0) & (x - vx // 2 + vx <= w)
+        )
+        kx, ky, kz = x[keep], y[keep], z[keep]
+        if kx.shape[0] == 0:
+            return
+        win = np.lib.stride_tricks.sliding_window_view(rec, (vz, vy, vx))
+        vols = win[kz - vz // 2, ky - vy // 2, kx - vx // 2].astype(np.float32)
+        for i in range(kx.shape[0]):
+            self.subvols.append(vols[i])
+            self.coords.append(np.array([kx[i], ky[i], kz[i]], np.float32))
+            self.names.append(name)
+
     def _mine_tomogram(self, name, rec, tilt, angle):
         cfg = self.config
         d, h, w = rec.shape
@@ -321,9 +367,14 @@ class ExploreDataset:
 
         Returns dict of (B, C, bbox, bbox) float32 with C=2 for 2d3d
         ((tilt, slice) stacked, sharing spatial augs like the reference's
-        2-channel Compose) or C=1 for 3d. On-device augmentation
-        (ops/augment.py) consumes these.
+        2-channel Compose) or C=1 for 3d; (B, *vol_size) in vol mode, both
+        views the same subvolume (particle_pre.py transforms it twice).
+        On-device augmentation (ops/augment.py) consumes these.
         """
+        if self.mode == "vol":
+            v = np.stack([self.subvols[int(i)] for i in indices])
+            return {"anchor": v.astype(np.float32),
+                    "aug": v.astype(np.float32)}
         anchors, augs = [], []
         for i in indices:
             i = int(i)
@@ -350,8 +401,12 @@ class ExploreDataset:
             yield self.sample_batch(rng, order[n_full * batch_size :])
 
     def test_items(self):
-        """Per-candidate (patch2d, patch3d, name, coord) for embedding
-        extraction (simsiam_test_hm_2d3d.py:33-71)."""
+        """Per-candidate (name, coord, patch2d, patch3d) for embedding
+        extraction (simsiam_test_hm_2d3d.py:33-71); in vol mode the last
+        element is the raw subvolume."""
         for i in range(self.num_samples):
+            if self.mode == "vol":
+                yield self.names[i], self.coords[i], None, self.subvols[i]
+                continue
             p2 = self.patches_2d[i] if self.mode == "2d3d" else None
             yield self.names[i], self.coords[i], p2, self.patches_3d[i]

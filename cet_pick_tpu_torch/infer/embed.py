@@ -1,5 +1,5 @@
 """Embedding extraction for the exploration module — port of
-``cet_pick_tpu/infer/embed.py:69-169`` (the 2d3d and 2d modes).
+``cet_pick_tpu/infer/embed.py:69-169``.
 
 Rebuild of reference cet_pick/simsiam_test_hm_2d3d.py:151-245 (2d3d) and
 simsiam_test_hm_3d.py (3d): re-mine the DoG candidates, normalize each patch
@@ -8,8 +8,12 @@ only, simsiam_test_hm_2d3d.py:47-53), run ``forward_test`` in batches of
 256 (the last padded, so the forward sees one shape), and dump
 ``all_output_info.npz`` with the reference's keys, dtypes and order:
 
-    proj, pred, name, coords, subvol               (2d mode)
+    proj, pred, name, coords, subvol               (2d and vol modes)
     proj, pred, name, coords, subvol, subvols_2d   (2d3d mode)
+
+In vol mode each subvolume goes through the deterministic test view
+(``ops/augment.vol_test_view``: centre crop, znorm / rescale / znorm), and
+``subvol`` keeps the raw (N, *vol_size) crops.
 
 Batch i+1's host -> device copy rides behind batch i's forward
 (``data/prefetch.PrefetchIterator``), and batch i's outputs are fetched
@@ -24,15 +28,20 @@ import numpy as np
 import torch
 
 from cet_pick_tpu_torch.data.prefetch import PrefetchIterator
+from cet_pick_tpu_torch.ops.augment import vol_test_view
 
 
 BATCH = 256
 
 
-def extract_embeddings(model, dataset, device="cpu"):
+def extract_embeddings(model, dataset, device="cuda"):
     """``forward_test`` in eval mode over every candidate patch of a test
-    ``ExploreDataset``, in batches of BATCH; returns the npz dict
+    ``ExploreDataset``, in batches of BATCH, on ``device`` (the card unless
+    the caller passes ``device="cpu"``); returns the npz dict
     (embed.py:69-163)."""
+    from cet_pick_tpu_torch.infer.detector import resolve_device
+
+    device = resolve_device(device)
     two = model.mode == "2d3d"
     names, coords, p2s, p3s = [], [], [], []
     for name, coord, p2, p3 in dataset.test_items():
@@ -48,7 +57,10 @@ def extract_embeddings(model, dataset, device="cpu"):
             "test tomogram(s); lower --dog sigmas or check the input volume"
         )
     sub3 = np.stack(p3s).astype(np.float32)
-    x3_all = (sub3 - dataset.mean_3d) / dataset.std_3d
+    if model.mode == "vol":
+        x3_all = vol_test_view(sub3)
+    else:
+        x3_all = (sub3 - dataset.mean_3d) / dataset.std_3d
     if two:
         sub2 = np.stack(p2s).astype(np.float32)
         x2_all = (sub2 - dataset.mean_2d) / dataset.std_2d

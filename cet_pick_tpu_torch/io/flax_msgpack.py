@@ -27,6 +27,8 @@ import struct
 import numpy as np
 
 CHECKPOINT_FILE = "state.msgpack"
+# a MoCo run's directory (cet_pick_tpu/train/moco.py:209-254)
+MOCO_CHECKPOINT_FILE = "moco_state.msgpack"
 
 EXT_NDARRAY = 1
 EXT_COMPLEX = 2
@@ -173,14 +175,13 @@ def msgpack_restore(data):
     return _unchunk(unpackb(data))
 
 
-def is_checkpoint_dir(path: str) -> bool:
-    """Whether ``path`` is a JAX checkpoint directory (holds
-    ``state.msgpack``)."""
-    return os.path.isfile(os.path.join(path, CHECKPOINT_FILE))
+def is_checkpoint_dir(path: str, filename: str = CHECKPOINT_FILE) -> bool:
+    """Whether ``path`` is a JAX checkpoint directory (holds ``filename``:
+    ``state.msgpack``, or ``moco_state.msgpack`` for a MoCo run)."""
+    return os.path.isfile(os.path.join(path, filename))
 
 
-def read_checkpoint(path: str) -> dict:
-    """The restored ``state.msgpack`` of the JAX checkpoint directory
-    ``path``."""
-    with open(os.path.join(path, CHECKPOINT_FILE), "rb") as f:
+def read_checkpoint(path: str, filename: str = CHECKPOINT_FILE) -> dict:
+    """The restored ``filename`` of the JAX checkpoint directory ``path``."""
+    with open(os.path.join(path, filename), "rb") as f:
         return msgpack_restore(f.read())

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from cet_pick_tpu_torch.io.flax_msgpack import (
+    MOCO_CHECKPOINT_FILE,
     is_checkpoint_dir,
     read_checkpoint,
 )
@@ -221,20 +222,28 @@ def state_dict_from_jax_tree(params, batch_stats) -> Dict[str, torch.Tensor]:
 def read_any_checkpoint(path: str):
     """(state dict, payload) of a checkpoint: a JAX checkpoint directory
     (payload: its restored ``state.msgpack``, ``io/flax_msgpack.py``, which
-    holds ``params``) or a ``.pth`` / ``.pt`` file (payload: what
+    holds ``params``; a MoCo run's ``moco_state.msgpack``, whose state dict
+    is the query encoder's) or a ``.pth`` / ``.pt`` file (payload: what
     ``torch.load`` gives). The state dict is the port's, on the CPU, with
     ``normalize_state_dict`` applied."""
     if is_checkpoint_dir(path):
         payload = read_checkpoint(path)
         raw = state_dict_from_jax_tree(payload["params"],
                                        payload.get("batch_stats") or {})
+    elif is_checkpoint_dir(path, MOCO_CHECKPOINT_FILE):
+        # a JAX MoCo run: the query encoder (cet_pick_tpu/__main__.py:
+        # 276-290); the payload keeps the key encoder and the queue
+        payload = read_checkpoint(path, MOCO_CHECKPOINT_FILE)
+        raw = simsiam_state_dict_from_jax(payload["params"],
+                                          payload.get("batch_stats") or {})
     elif path.endswith((".pth", ".pt")):
         payload = torch.load(path, map_location="cpu", weights_only=True)
         raw = payload.get("state_dict", payload)
     else:
         raise ValueError(
             f"--load_model {path!r}: neither a .pth checkpoint nor a JAX "
-            f"checkpoint directory (a directory holding state.msgpack)")
+            f"checkpoint directory (a directory holding state.msgpack or "
+            f"moco_state.msgpack)")
     return normalize_state_dict(raw), payload
 
 
@@ -268,11 +277,17 @@ def load_checkpoint(path: str, arch=None) -> Dict[str, torch.Tensor]:
 
 def simsiam_state_dict_from_jax(params, batch_stats
                                 ) -> Dict[str, torch.Tensor]:
-    """JAX ``SimSiamEncoder`` variables (2d3d / 2d) -> the port's state dict
-    in the reference layout, ``num_batches_tracked`` included, so that
-    ``models/simsiam.SimSiamEncoder`` loads it with ``strict=True``; the
-    mapping of ``simsiam_flax_to_torch_state_dict`` (convert.py:482-539)."""
+    """JAX ``SimSiamEncoder`` variables -> the port's state dict,
+    ``num_batches_tracked`` included, so that
+    ``models/simsiam.SimSiamEncoder`` loads it with ``strict=True``. The 2D
+    trunk (2d3d / 2d) takes the reference layout of
+    ``simsiam_flax_to_torch_state_dict`` (convert.py:482-539), the
+    reference-structural vol trunks (``f3d_conv`` in the tree; a 4-D conv1
+    kernel is ``SliceTrunkRef``, a 5-D one ``VolTrunkRef``) that of
+    ``_ref_vol_flax_to_torch`` (convert.py:542-611), and ``VolTrunk`` (5-D
+    conv1, no ``f3d_conv``) the 2D trunk's names on its Conv3d / BN3d."""
     sd: Dict = {}
+    trunk = params["trunk"]
 
     def bn(dst, src, affine=True):
         if affine:
@@ -283,8 +298,9 @@ def simsiam_state_dict_from_jax(params, batch_stats
         sd[dst + ".num_batches_tracked"] = np.array(0, np.int64)
 
     def conv(dst, src):
-        sd[dst + ".weight"] = np.transpose(_get(params, src + ("kernel",)),
-                                           (3, 2, 0, 1))
+        k = _get(params, src + ("kernel",))  # (*k, in, out)
+        n = k.ndim
+        sd[dst + ".weight"] = np.transpose(k, (n - 1, n - 2, *range(n - 2)))
 
     def dense(dst, src, bias=True):
         sd[dst + ".weight"] = np.transpose(_get(params, src + ("kernel",)),
@@ -297,14 +313,20 @@ def simsiam_state_dict_from_jax(params, batch_stats
     for stage in range(3):
         for b in range(2):
             dst = f"layer{stage + 1}.{b}"
+            blk = trunk[f"layer{stage + 1}_{b}"]
             src = ("trunk", f"layer{stage + 1}_{b}")
             conv(dst + ".conv1", src + ("conv1",))
-            bn(dst + ".bn1", src + ("bn1",))
             conv(dst + ".conv2", src + ("conv2",))
-            bn(dst + ".bn2", src + ("bn2",))
-            if "downsample_conv" in params["trunk"][f"layer{stage + 1}_{b}"]:
+            if "bn1" in blk:  # the reference moco3d block has no BN
+                bn(dst + ".bn1", src + ("bn1",))
+                bn(dst + ".bn2", src + ("bn2",))
+            if "downsample_conv" in blk:
                 conv(dst + ".downsample.0", src + ("downsample_conv",))
+            if "downsample_bn" in blk:
                 bn(dst + ".downsample.1", src + ("downsample_bn",))
+    if "f3d_conv" in trunk:
+        conv("feature_3d.0", ("trunk", "f3d_conv"))
+        bn("feature_3d.1", ("trunk", "f3d_bn"))
     dense("fc", ("fc",))
     dense("proj.0", ("proj", "fc0"), bias=False)
     bn("proj.1", ("proj", "bn0"))
@@ -338,38 +360,104 @@ def scan_state_dict_from_jax(params, batch_stats
     return sd
 
 
-def load_simsiam_checkpoint(path: str, fill=None) -> Dict[str, torch.Tensor]:
-    """A reference exploration ``.pth`` (``TomoResClassifier2D3D`` / ``2D``,
-    the inverse of JAX's ``simsiam_state_dict_to_flax``, convert.py:107-153),
-    the port's own ``model_last.pth``, a JAX checkpoint directory, or a SCAN
-    ``ClusteringModel`` (the reference's, the port's ``scan_model_last.pth``
-    or JAX's ``scan_model_last/``), whose ``backbone.*`` is taken and its
-    cluster heads dropped, as ``load_simsiam_torch`` does
-    (convert.py:366-372) -> the state dict for ``SimSiamEncoder``'s strict
-    load, ``module.`` prefixes stripped.
+def simsiam_family(sd) -> str:
+    """The encoder family of an exploration state dict, as JAX's
+    ``load_simsiam_torch`` detects it (convert.py:373-387): the reference
+    subvolume encoders carry the Conv3d ``feature_3d``, with a 5-D conv1 in
+    ``moco3dref`` and a 4-D one in ``simsiamref``; ``VolTrunk`` has a 5-D
+    conv1 and no ``feature_3d``; the patch encoders a 4-D conv1."""
+    conv3d = sd["conv1.weight"].dim() == 5
+    if "feature_3d.0.weight" in sd:
+        return "moco3dref" if conv3d else "simsiamref"
+    return "simsiam" if conv3d else "simsiam2d/2d3d"
 
-    ``fill``: a state dict (the model's own) whose ``pred.*`` entries stand
-    in for a ``pred`` head the file lacks, as JAX keeps the fresh init of a
-    head the checkpoint has not (convert.py:391-396): a SCAN backbone has no
-    ``pred``. Any other missing module stays missing, so the strict load
-    refuses a truncated file. The reference's MoCo wrapper and the
-    torchvision ImageNet trunk init come with the MoCo slice."""
+
+# the trunk tensors a torchvision ResNet shares with the 2D trunk's names
+_RESNET_BN = ("weight", "bias", "running_mean", "running_var")
+_RESNET_TRUNK = (["conv1.weight"] + [f"bn1.{t}" for t in _RESNET_BN] + [
+    f"layer{s}.{b}.{m}" for s in (1, 2, 3) for b in (0, 1) for m in (
+        ["conv1.weight", "conv2.weight", "downsample.0.weight"]
+        + [f"{n}.{t}" for n in ("bn1", "bn2", "downsample.1")
+           for t in _RESNET_BN])])
+
+
+def imagenet_partial_init(sd, fresh, log_fn=print):
+    """A torchvision ``resnet18`` / ``34`` state dict merged into the
+    model's fresh state dict ``fresh``, the reference's from-pretrained
+    recipe (simsiam_model_2d3d.py:785-838; JAX ``imagenet_resnet_to_flax``,
+    convert.py:293-345): conv1 summed over its RGB input channels, then
+    every trunk tensor (conv1, bn1, layer1-3) loaded where the model has
+    it at the same shape; conv1 (k7 s2 against the trunk's k3 s1) and
+    anything else keep their fresh init, as do layer4, fc and the heads.
+    Logs the count loaded and the names kept fresh."""
+    sd = dict(sd)
+    w = sd.get("conv1.weight")
+    if w is not None and w.dim() == 4 and w.shape[1] == 3:
+        sd["conv1.weight"] = w.sum(dim=1, keepdim=True)
+    out = dict(fresh)
+    loaded, skipped = [], []
+    for k in _RESNET_TRUNK:
+        if k not in sd:
+            continue
+        if k not in fresh or fresh[k].shape != sd[k].shape:
+            skipped.append(k)
+            continue
+        out[k] = sd[k].to(fresh[k].dtype)
+        loaded.append(k)
+    log_fn(f"imagenet init: loaded {len(loaded)} trunk tensors, kept fresh "
+           f"init for {skipped or 'none'} (shape mismatch, "
+           f"reference-compatible partial load)")
+    return out
+
+
+def load_simsiam_checkpoint(path: str, fill=None,
+                            log_fn=print) -> Dict[str, torch.Tensor]:
+    """The state dict for ``SimSiamEncoder``'s strict load from any
+    exploration checkpoint JAX's ``load_simsiam_torch`` reads
+    (convert.py:348-396), ``module.`` prefixes stripped: a reference
+    exploration ``.pth`` (``TomoResClassifier2D3D`` / ``2D``, or the
+    subvolume ``TomoResClassifier`` / ``TomoResClassifier3D`` for
+    ``simsiamref_N`` / ``moco3dref_N``), the port's own ``model_last.pth``,
+    a JAX checkpoint directory (a MoCo run's included: its query encoder),
+    a MoCo wrapper (the reference's or the port's ``model_last.pth``), whose
+    ``encoder_q.*`` is taken and ``encoder_k.*`` / the queue dropped, a
+    SCAN ``ClusteringModel`` (the reference's, the port's
+    ``scan_model_last.pth`` or JAX's ``scan_model_last/``), whose
+    ``backbone.*`` is taken, or a torchvision ResNet (an ImageNet trunk
+    init, :func:`imagenet_partial_init`; it needs ``fill``).
+
+    ``fill``: the model's own state dict. With it, a checkpoint of another
+    encoder family than the model's is refused by name, and its ``pred.*``
+    entries stand in for a ``pred`` head the file lacks (a SCAN backbone, a
+    reference ``moco3d`` encoder), as JAX keeps the fresh init of a head
+    the checkpoint has not (convert.py:391-396). Any other missing module
+    stays missing, so the strict load refuses a truncated file."""
     sd = read_any_checkpoint(path)[0]
-    if any(k.startswith("encoder_q.") for k in sd):
-        raise ValueError(
-            f"{path} is a reference MoCo checkpoint (encoder_q.*); the port "
-            f"reads it once MoCo is ported (`python -m cet_pick_tpu` reads "
-            f"it today)")
-    if any(k.startswith("backbone.") for k in sd):
-        sd = {k[len("backbone."):]: v for k, v in sd.items()
-              if k.startswith("backbone.")}
+    for prefix in ("encoder_q.", "backbone."):
+        if any(k.startswith(prefix) for k in sd):
+            sd = {k[len(prefix):]: v for k, v in sd.items()
+                  if k.startswith(prefix)}
+            break
     if "proj.0.weight" not in sd:
+        if fill is not None and all(k in sd for k in (
+                "conv1.weight", "bn1.running_mean", "layer1.0.conv1.weight")):
+            return imagenet_partial_init(sd, fill, log_fn)
         raise ValueError(
             f"{path} is not an exploration encoder checkpoint (no proj "
-            f"head); ImageNet-resnet18 checkpoints are not yet read by "
-            f"cet_pick_tpu_torch")
-    if fill is not None and not any(k.startswith("pred.") for k in sd):
-        sd.update({k: v for k, v in fill.items() if k.startswith("pred.")})
+            f"head) nor a torchvision ResNet trunk")
+    if fill is not None:
+        got, want = simsiam_family(sd), simsiam_family(fill)
+        if got != want or sd["conv1.weight"].shape != \
+                fill["conv1.weight"].shape:
+            raise ValueError(
+                f"{path} is a {got} encoder (conv1 "
+                f"{tuple(sd['conv1.weight'].shape)}) but the model was built "
+                f"as a {want} encoder (conv1 "
+                f"{tuple(fill['conv1.weight'].shape)}); pass the matching "
+                f"arch (e.g. --arch {got.split('/')[0]}_18)")
+        if not any(k.startswith("pred.") for k in sd):
+            sd.update({k: v for k, v in fill.items()
+                       if k.startswith("pred.")})
     return sd
 
 

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cet_pick_tpu_torch.models.conv3d import Conv3d
 from cet_pick_tpu_torch.models.flax_init import flax_init_
 
 
@@ -71,7 +72,9 @@ class TomoRes3DRefNet(nn.Module):
     def __init__(self, heads: Dict[str, int]):
         super().__init__()
         self.heads = dict(heads)
-        self.conv1 = nn.Conv3d(1, 64, 7, stride=2, padding=3, bias=False)
+        # oneDNN off on the CPU: its weight gradient of this stem is wrong
+        # on 6-slice input (models/conv3d.py)
+        self.conv1 = Conv3d(1, 64, 7, stride=2, padding=3, bias=False)
         self.maxpool = nn.MaxPool3d(3, stride=2, padding=1)
         self.layer1 = nn.Sequential(RefBasicBlock3D(64, 64),
                                     RefBasicBlock3D(64, 64))

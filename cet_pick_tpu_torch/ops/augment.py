@@ -1,5 +1,6 @@
 """Batched image augmentations for exploration training — port of
-``cet_pick_tpu/ops/augment.py`` (the two 2D pipelines).
+``cet_pick_tpu/ops/augment.py`` (the two 2D pipelines and the 3D-subvolume
+one).
 
 Rebuild of the reference's torchvision transform pipelines (reference:
 cet_pick/datasets/tomo_pre_proj_angle_select_new2d3d.py:49-82 and
@@ -25,6 +26,11 @@ Pipelines (the reference's strong/weak compositions):
     hflip(.5) -> vflip(.5) -> ColorJitter(0.5,0.2,0.3,0.1) ->
     RandomResizedCrop(scale 0.8-1.0 strong / 0.9-1.0 weak, ratio 1) ->
     rot90 -> normalize
+  vol mode (augment.py:438-485; tio Compose of datasets/tomo_pre.py, then
+  particle_pre.py:48-87), both views alike:
+    xy blur(.15) -> gaussian noise(.5) -> xy rotation U(0, 60°)(.75) ->
+    centre crop (size // 8 a side) -> znorm(rescale(-3, 3)(znorm)) ->
+    flip H or W (1/3 each) -> one of drop / centre-out / swap (.25 each)
 
 The rotation is Paeth's 3-shear form (``_rotate_shear``, augment.py:528-570)
 and the resized crop two separable linear interpolations (augment.py:
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -294,3 +301,239 @@ def simsiam_augment_3d(x, gen, mean, std, out_size, strong=True):
     b, _, h, w = x.shape
     params = draw_simsiam_3d_params(b, h, w, gen, x.device, strong)
     return apply_simsiam_3d(x, params, mean, std, out_size)
+
+
+# ---------------------------------------------------------------------------
+# the 3D-subvolume (vol) pipeline
+# ---------------------------------------------------------------------------
+
+def vol_out_size(vol_size):
+    """Post-crop subvolume shape: size - 2 * (size // 8) per axis (the tio
+    Crop(size // 8) at tomo_pre.py:57; augment.py:488-491)."""
+    return tuple(int(s) - 2 * (int(s) // 8) for s in vol_size)
+
+
+def vol_test_view(vols):
+    """Deterministic test-time view of (N, D, H, W) numpy subvolumes for
+    embedding: the centre crop and znorm / rescale / znorm with numpy's
+    float32 reductions, copied from augment.py:494-512 so that the embed
+    input is byte-identical to JAX's."""
+    d, h, w = vols.shape[1:]
+    od, oh, ow = vol_out_size((d, h, w))
+    x = vols[:, (d - od) // 2: (d - od) // 2 + od,
+             (h - oh) // 2: (h - oh) // 2 + oh,
+             (w - ow) // 2: (w - ow) // 2 + ow].astype(np.float32)
+    out = np.empty_like(x)
+    for i in range(x.shape[0]):
+        v = x[i]
+        v = (v - v.mean()) / max(v.std(), 1e-6)
+        mn, mx = v.min(), v.max()
+        v = -3.0 + (v - mn) / max(mx - mn, 1e-12) * 6.0
+        out[i] = (v - v.mean()) / max(v.std(), 1e-6)
+    return out
+
+
+def _col3(v):
+    """(B,) -> (B, 1, 1, 1) over (D, H, W)."""
+    return v.reshape(-1, 1, 1, 1)
+
+
+def _znorm(x):
+    """Per-sample (x - mean) / max(std, 1e-6) over (D, H, W) (augment.py:
+    347-348; the population std)."""
+    var, mean = torch.var_mean(x, dim=(1, 2, 3), keepdim=True, correction=0)
+    return (x - mean) / torch.clamp(torch.sqrt(var), min=1e-6)
+
+
+def _rescale(x, lo=-3.0, hi=3.0):
+    """Per-sample min-max rescale to [lo, hi] (augment.py:351-353)."""
+    mn = x.amin(dim=(1, 2, 3), keepdim=True)
+    mx = x.amax(dim=(1, 2, 3), keepdim=True)
+    return lo + (x - mn) / torch.clamp(mx - mn, min=1e-12) * (hi - lo)
+
+
+def _blur_xy(x, t):
+    """3x3 binomial xy blur with edge padding, blended by the per-sample
+    strength ``t`` (B,) (augment.py:356-363)."""
+    p = torch.cat([x[:, :, :1], x, x[:, :, -1:]], dim=2)
+    bl = p[:, :, :-2] * 0.25 + p[:, :, 1:-1] * 0.5 + p[:, :, 2:] * 0.25
+    p = torch.cat([bl[..., :1], bl, bl[..., -1:]], dim=3)
+    bl = p[..., :-2] * 0.25 + p[..., 1:-1] * 0.5 + p[..., 2:] * 0.25
+    t = _col3(t)
+    return x * (1.0 - t) + bl * t
+
+
+def _rotate_bilinear(x, theta):
+    """Rotation of every (H, W) plane of (B, C, H, W) by ``theta`` (B,)
+    about its centre, one bilinear resample with zero fill
+    (``_rotate_vol_xy`` and ``_bilinear_sample``, augment.py:100-125,
+    366-378); the rotation of non-square slices."""
+    b, c, h, w = x.shape
+    dev = x.device
+    yr = (torch.arange(h, device=dev, dtype=x.dtype) - (h - 1) / 2.0)[:, None]
+    xr = (torch.arange(w, device=dev, dtype=x.dtype) - (w - 1) / 2.0)[None, :]
+    cos = torch.cos(theta)[:, None, None]
+    sin = torch.sin(theta)[:, None, None]
+    ys = cos * yr - sin * xr + (h - 1) / 2.0  # (B, H, W)
+    xs = sin * yr + cos * xr + (w - 1) / 2.0
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy = (ys - y0)[:, None]
+    wx = (xs - x0)[:, None]
+    y0 = y0.long()
+    x0 = x0.long()
+    flat = x.reshape(b, c, h * w)
+
+    def tap(yi, xi):
+        ok = ((yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)).to(x.dtype)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, 1, -1)
+        v = torch.gather(flat, 2, idx.expand(-1, c, -1)).reshape(b, c, h, w)
+        return v, ok[:, None]
+
+    p00, v00 = tap(y0, x0)
+    p01, v01 = tap(y0, x0 + 1)
+    p10, v10 = tap(y0 + 1, x0)
+    p11, v11 = tap(y0 + 1, x0 + 1)
+    return (p00 * ((1 - wy) * (1 - wx) * v00) + p01 * ((1 - wy) * wx * v01)
+            + p10 * (wy * (1 - wx) * v10) + p11 * (wy * wx * v11))
+
+
+def _axis_masks(starts, diams, shape, device):
+    """Per-axis (B, n) membership of the blocks at ``starts`` (B, 3)."""
+    masks = []
+    for ax, (dd, n) in enumerate(zip(diams, shape)):
+        i = torch.arange(n, device=device)[None]
+        s = starts[:, ax:ax + 1]
+        masks.append((i >= s) & (i < s + dd))
+    return masks
+
+
+def _box(masks):
+    md, mh, mw = masks
+    return md[:, :, None, None] & mh[:, None, :, None] & mw[:, None, None, :]
+
+
+def _drop_out(x, starts, diams):
+    """Zero the block of ``diams`` at ``starts`` (B, 3) (augment.py:
+    409-414)."""
+    mask = _box(_axis_masks(starts, diams, x.shape[1:], x.device))
+    return torch.where(mask, torch.zeros_like(x), x)
+
+
+def _center_out(x, diams):
+    """Keep only the central xy band, all z (augment.py:417-427)."""
+    _, d, h, w = x.shape
+    ih = torch.arange(h, device=x.device)
+    iw = torch.arange(w, device=x.device)
+    keep = (((ih >= h // 2 - diams[1]) & (ih < h // 2 + diams[1]))[:, None]
+            & ((iw >= w // 2 - diams[2]) & (iw < w // 2 + diams[2]))[None])
+    return torch.where(keep, x, torch.zeros_like(x))
+
+
+def _take(x, idx, dim):
+    """x gathered along ``dim`` (1..3) at per-sample indices (B, n)."""
+    shape = [idx.shape[0], 1, 1, 1]
+    shape[dim] = idx.shape[1]
+    return torch.gather(x, dim, idx.reshape(shape).expand(
+        *[x.shape[a] if a != dim else idx.shape[1] for a in range(4)]))
+
+
+def _swap_out(x, s0, s1, diams):
+    """Swap the blocks of ``diams`` at ``s0`` and ``s1`` (B, 3): block b
+    (at s1) is written at s0, then block a (at s0) at s1, so where the two
+    overlap the second write wins, as JAX's two ``dynamic_update_slice``
+    calls do (augment.py:430-439)."""
+    shape = x.shape[1:]
+    in0 = _axis_masks(s0, diams, shape, x.device)
+    in1 = _axis_masks(s1, diams, shape, x.device)
+    src0, src1 = x, x
+    for ax in range(3):
+        i = torch.arange(shape[ax], device=x.device)[None]
+        src1 = _take(src1, torch.where(in1[ax], i - s1[:, ax:ax + 1]
+                                       + s0[:, ax:ax + 1], i), ax + 1)
+        src0 = _take(src0, torch.where(in0[ax], i - s0[:, ax:ax + 1]
+                                       + s1[:, ax:ax + 1], i), ax + 1)
+    return torch.where(_box(in1), src1, torch.where(_box(in0), src0, x))
+
+
+def _offcenter_start(b, dim, diam, gen, device):
+    """Block starts (B,) avoiding the central band: U over [0, mid -
+    2 diam) + [mid + diam, dim - diam), clipped (augment.py:381-394)."""
+    mid = dim // 2
+    n1 = max(mid - 2 * diam, 0)
+    lo2 = mid + diam
+    n2 = max(dim - diam - lo2, 0)
+    u = torch.randint(0, max(n1 + n2, 1), (b,), generator=gen, device=device)
+    start = torch.where(u < n1, u, lo2 + (u - n1))
+    return start.clamp(0, max(dim - diam, 0))
+
+
+def vol_diams(vol_size):
+    """(drop / swap block, centre band) diameters from the pre-crop size
+    (particle_pre.py:53-54; augment.py:458-459)."""
+    return (tuple(max(s // 8, 1) for s in vol_size),
+            tuple(max(s // 4, 1) for s in vol_size))
+
+
+def draw_simsiam_vol_params(b, vol_size, gen, device):
+    """Per-sample parameters of the vol pipeline for (D, H, W) = ``vol_size``
+    subvolumes (augment.py:462-483): the blur flag (p .15) and strength, the
+    noise tensor, its scale U(0, .25) and flag (p .5), the rotation angle
+    U(0, 60°) in radians and its flag (p .75), the flip draw ``fp`` and the
+    corruption draw ``bp`` (uniforms), and the drop block's and the two swap
+    blocks' starts (B, 3) on the post-crop grid."""
+    shape = vol_out_size(vol_size)
+    drop, _ = vol_diams(vol_size)
+
+    def starts():
+        return torch.stack([_offcenter_start(b, n, dd, gen, device)
+                            for n, dd in zip(shape, drop)], dim=1)
+
+    return {"blur_t": _uniform(b, gen, device),
+            "blur": _uniform(b, gen, device) < 0.15,
+            "noise": torch.randn((b,) + tuple(vol_size), generator=gen,
+                                 device=device),
+            "noise_scale": _uniform(b, gen, device, 0.0, 0.25),
+            "add_noise": _uniform(b, gen, device) < 0.5,
+            "theta": _uniform(b, gen, device, 0.0, 60.0) * math.pi / 180.0,
+            "rotate": _uniform(b, gen, device) < 0.75,
+            "fp": _uniform(b, gen, device),
+            "bp": _uniform(b, gen, device),
+            "drop_start": starts(), "swap_s0": starts(), "swap_s1": starts()}
+
+
+def apply_simsiam_vol(x, params):
+    """The vol pipeline on (B, D, H, W) with drawn ``params``
+    (``simsiam_augment_vol``, augment.py:442-485) -> (B, *vol_out_size)."""
+    b, d, h, w = x.shape
+    od, oh, ow = vol_out_size((d, h, w))
+    drop, center = vol_diams((d, h, w))
+    x = torch.where(_col3(params["blur"]), _blur_xy(x, params["blur_t"]), x)
+    x = torch.where(_col3(params["add_noise"]),
+                    x + params["noise"] * _col3(params["noise_scale"]), x)
+    # square slices: the 3-shear rotation over D as channels
+    # (_rotate_vol_xy_shear, augment.py:528-570); else one bilinear resample
+    rotate = _rotate_shear if h == w else _rotate_bilinear
+    x = torch.where(_col3(params["rotate"]), rotate(x, params["theta"]), x)
+    x = x[:, (d - od) // 2:(d - od) // 2 + od, (h - oh) // 2:(h - oh) // 2 + oh,
+          (w - ow) // 2:(w - ow) // 2 + ow]
+    x = _znorm(_rescale(_znorm(x)))
+    fp = _col3(params["fp"])
+    x = torch.where(fp < 0.33, x.flip(2), torch.where(fp > 0.66, x.flip(3), x))
+    bp = _col3(params["bp"])
+    return torch.where(
+        bp < 0.25, _drop_out(x, params["drop_start"], drop),
+        torch.where(bp < 0.5, _center_out(x, center),
+                    torch.where(bp < 0.75, _swap_out(
+                        x, params["swap_s0"], params["swap_s1"], drop), x)))
+
+
+def simsiam_augment_vol(x, gen, mean=None, std=None, out_size=None,
+                        strong=True):
+    """The vol pipeline, drawn and applied, on a (B, D, H, W) batch
+    (augment.py:442-485). ``mean`` / ``std`` / ``strong`` are accepted for
+    the patch pipelines' signature and unused, as in JAX: both views are
+    drawn alike and z-normalized per sample; ``out_size`` is always
+    ``vol_out_size`` of the input."""
+    params = draw_simsiam_vol_params(x.shape[0], x.shape[1:], gen, x.device)
+    return apply_simsiam_vol(x, params)

@@ -89,12 +89,15 @@ def dog_response(rec, sigmas=(2, 4), bound_xy=30):
     return resp, mean + 0.5 * torch.sqrt(var)
 
 
-def dog_candidates_pyramid(rec, sigmas=(2, 4), device="cpu"):
+def dog_candidates_pyramid(rec, sigmas=(2, 4), device="cuda"):
     """Full candidate mining of a (D, H, W) numpy volume: the response on
-    ``device``, the greedy ball NMS (diameter 14) on the host
-    (dog.py:92-106). Borders of 10 z-slices and 30 xy-pixels (60 for
-    volumes larger than 512^2) are excluded. Returns (scores, coords) with
-    coords rows (x, y, z)."""
+    ``device`` (the card unless the caller passes ``device="cpu"``), the
+    greedy ball NMS (diameter 14) on the host (dog.py:92-106). Borders of
+    10 z-slices and 30 xy-pixels (60 for volumes larger than 512^2) are
+    excluded. Returns (scores, coords) with coords rows (x, y, z)."""
+    from cet_pick_tpu_torch.infer.detector import resolve_device
+
+    device = resolve_device(device)
     d, h, w = rec.shape
     bound_xy = 60 if (h > 512 and w > 512) else 30
     resp, cutoff = dog_response(

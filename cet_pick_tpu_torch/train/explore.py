@@ -1,5 +1,5 @@
 """Exploration (SimSiam) training — port of ``cet_pick_tpu/train/explore.py``
-(the 2d3d and 2d patch modes).
+(the 2d3d and 2d patch modes and the 3D-subvolume ``vol`` mode).
 
 Rebuild of reference cet_pick/simsiam_main.py:25-166 +
 trains/tomo_simsiam_trainer.py:17-55:
@@ -13,7 +13,9 @@ trains/tomo_simsiam_trainer.py:17-55:
   (tomo_simsiam_trainer.py:28-40);
 * the strong/weak augmentation pipelines run on the card inside the step
   (ops/augment.py), batched, from a ``torch.Generator`` seeded with
-  ``seed + 1`` (JAX: ``PRNGKey(seed + 1)``; the draws' bits differ).
+  ``seed + 1`` (JAX: ``PRNGKey(seed + 1)``; the draws' bits differ); vol
+  mode draws both views from its one pipeline and ignores the dataset's
+  statistics (each subvolume is z-normalized).
 
 The epoch loop is the refinement one (``train/refine.run_epoch``: prefetched
 batches with a pinned host -> device copy, metrics read one step late), and
@@ -34,7 +36,11 @@ import torch
 from cet_pick_tpu_torch.infer.detector import resolve_device
 from cet_pick_tpu_torch.models.convert import load_simsiam_checkpoint
 from cet_pick_tpu_torch.models.simsiam import create_simsiam
-from cet_pick_tpu_torch.ops.augment import simsiam_augment, simsiam_augment_3d
+from cet_pick_tpu_torch.ops.augment import (
+    simsiam_augment,
+    simsiam_augment_3d,
+    simsiam_augment_vol,
+)
 from cet_pick_tpu_torch.train.losses import simsiam_loss
 from cet_pick_tpu_torch.train.refine import optimizer_step, run_epoch
 from cet_pick_tpu_torch.train.state import (
@@ -82,21 +88,32 @@ def simsiam_warmup_lr(config, epoch, batch_id, total_batches):
     return float(WARMUP_FROM + p * (warmup_to - WARMUP_FROM))
 
 
+def explore_augment(mode):
+    """The augment pipeline of an exploration mode: the 2d3d one, the
+    rec-only (2d) one of tomo_pre_proj_angle_select_new3d_vol.py, or the
+    subvolume one (explore.py:131-143)."""
+    return {"2d3d": simsiam_augment, "2d": simsiam_augment_3d,
+            "vol": simsiam_augment_vol}[mode]
+
+
+def split_views(x, mode):
+    """A batch of views -> the encoder's (x2d, x3d) inputs: (B, C, H, W) ->
+    (B, 1, H, W) tilt / slice patches (x3d only in 2d3d), or (B, D, H, W)
+    subvolumes -> (B, 1, D, H, W) (explore.py:145-151)."""
+    if mode == "vol":
+        return x[:, None], None
+    return x[:, 0:1], (x[:, 1:2] if mode == "2d3d" else None)
+
+
 def make_simsiam_train_step(model, config, norm_mean, norm_std, gen):
     """``train_step(state, batch)``: both views augmented on the batch's
     device from ``gen`` (anchor strong, aug weak), the two-view forward in
     train mode, the loss, one SGD step (explore.py:107-163). ``norm_mean``
     / ``norm_std`` are the dataset's per-channel statistics as (C,) device
-    tensors. The stages are exposed for timing: ``train_step.augment(batch)
-    -> (v1, v2)`` and ``train_step.forward_loss(v1, v2)``."""
-    two_channel = model.mode == "2d3d"
-    # rec-only (2d) exploration uses the reference's ColorJitter +
-    # RandomResizedCrop pipeline (tomo_pre_proj_angle_select_new3d_vol.py)
-    augment = simsiam_augment if two_channel else simsiam_augment_3d
-
-    def split_views(x):
-        # (B, C, H, W) -> (B, 1, H, W) tilt / slice inputs
-        return x[:, 0:1], (x[:, 1:2] if two_channel else None)
+    tensors (unused in vol mode). The stages are exposed for timing:
+    ``train_step.augment(batch) -> (v1, v2)`` and
+    ``train_step.forward_loss(v1, v2)``."""
+    augment = explore_augment(model.mode)
 
     def augment_views(batch):
         return (augment(batch["anchor"], gen, norm_mean, norm_std,
@@ -105,7 +122,8 @@ def make_simsiam_train_step(model, config, norm_mean, norm_std, gen):
                         strong=False))
 
     def forward_loss(v1, v2):
-        ret1, ret2 = model(*split_views(v1), *split_views(v2))
+        ret1, ret2 = model(*split_views(v1, model.mode),
+                           *split_views(v2, model.mode))
         loss, std = simsiam_loss(ret1["pred"], ret1["proj"], ret2["pred"],
                                  ret2["proj"])
         return loss, {"loss": loss, "std": std}
@@ -119,9 +137,13 @@ def make_simsiam_train_step(model, config, norm_mean, norm_std, gen):
 
 def prepare_explore(config, log_fn=print, device="cuda"):
     """Model, SGD state and checkpoint load (explore.py:180-240): the
-    encoder initialized from ``config.seed``; ``--load_model`` takes a
-    reference exploration ``.pth`` or the port's ``model_last.pth``
-    (strict), with ``--resume`` the optimizer and the epoch too."""
+    encoder initialized from ``config.seed``; ``--load_model`` takes what
+    ``load_simsiam_checkpoint`` reads (the port's ``model_last.pth``, a
+    reference ``.pth`` of the arch's family, a JAX checkpoint directory, a
+    MoCo wrapper's query encoder, a torchvision ResNet as a trunk init),
+    with ``--resume`` the optimizer and the epoch too. ``VolTrunk``
+    (``simsiam_N`` / ``moco3d_N``) reads its own ``.pth``, which JAX, with
+    no ``.pth`` layout for it, refuses (explore.py:205-217)."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(config.seed)
@@ -132,7 +154,8 @@ def prepare_explore(config, log_fn=print, device="cuda"):
         model.parameters(), lr=config.lr))
     if config.load_model:
         model.load_state_dict(load_simsiam_checkpoint(
-            config.load_model, fill=model.state_dict()), strict=True)
+            config.load_model, fill=model.state_dict(), log_fn=log_fn),
+            strict=True)
         if config.resume:
             load_checkpoint(config.load_model, state, resume=True)
         log_fn(f"loaded checkpoint from {config.load_model} "
@@ -140,7 +163,18 @@ def prepare_explore(config, log_fn=print, device="cuda"):
     return {"model": model, "state": state, "device": device}
 
 
-def _with_warmup(train_step, config, epoch, total_batches):
+def norm_stats(dataset, mode, device):
+    """The dataset's per-channel (mean, std) as (C,) tensors on ``device``:
+    (tilt, slice) in 2d3d, the slice's alone otherwise."""
+    stats = ((dataset.mean_2d, dataset.mean_3d), (dataset.std_2d,
+                                                  dataset.std_3d))
+    if mode != "2d3d":
+        stats = ((dataset.mean_3d,), (dataset.std_3d,))
+    return tuple(torch.tensor(s, dtype=torch.float32, device=device)
+                 for s in stats)
+
+
+def with_warmup(train_step, config, epoch, total_batches):
     """``train_step`` that first sets the ``--warm`` LR of its batch, in the
     warm epochs; ``train_step`` itself elsewhere."""
     if simsiam_warmup_lr(config, epoch, 0, total_batches) is None:
@@ -162,12 +196,7 @@ def train_explore(config, dataset, prepared, log_fn=print):
     epochs' mean ``loss`` / ``std``)."""
     model, state = prepared["model"], prepared["state"]
     device = prepared["device"]
-    stats = ((dataset.mean_2d, dataset.mean_3d), (dataset.std_2d,
-                                                  dataset.std_3d))
-    if model.mode != "2d3d":
-        stats = ((dataset.mean_3d,), (dataset.std_3d,))
-    norm_mean, norm_std = (torch.tensor(s, dtype=torch.float32, device=device)
-                           for s in stats)
+    norm_mean, norm_std = norm_stats(dataset, model.mode, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(config.seed + 1)
     train_step = make_simsiam_train_step(model, config, norm_mean, norm_std,
@@ -179,7 +208,7 @@ def train_explore(config, dataset, prepared, log_fn=print):
     with AsyncCheckpointer() as ckpt:
         for epoch in range(state.epoch + 1, config.num_epochs + 1):
             history.append(run_epoch(
-                _with_warmup(train_step, config, epoch, total_batches),
+                with_warmup(train_step, config, epoch, total_batches),
                 state, dataset, rng, config, epoch, device, log_fn,
                 lr=simsiam_lr_at_epoch(config, epoch)))
             snap = ckpt.save(os.path.join(config.save_dir, "model_last.pth"),

@@ -149,6 +149,36 @@ test-split candidate) and ``explore``'s ``model_last.pth``:
              > 0.5, one step card against CPU within the explore bars;
              step ms, samples/s, purity
 
+The slice of exploration's 3D-subvolume mode and MoCo adds:
+
+- vol_model  after ``explore_model``: ``simsiam_18``, ``simsiamref_18`` and
+             ``moco3dref_18`` at full width on 8x64x64 subvolumes (6x48x48
+             after the crop), batch 32, the card against the CPU (train
+             and eval forwards, one SGD step's loss, gradients and
+             parameters, within the explore bars); the vol augment's apply
+             at batch 256; one ``moco3d_18`` MoCo step (loss, queue rows,
+             query and key parameters, the key's BN buffers)
+- explore_vol ``explore --task simsiam --arch simsiam_18`` at its defaults
+             (batch 256, 8x64x64), 2 epochs of VOL_ITERS steps: losses
+             finite, std > 0.01, ``model_last.pth``; samples/s, peak
+             bytes; then one step by stage with the busy share
+             (``explore_breakdown_vol``)
+- embed_vol  ``embed`` on it: keys, dtypes, shapes (``subvol`` (N, 8, 64,
+             64)), patches/s, 1-NN agreement
+- moco       ``moco`` at its defaults (2d, batch 128, head_conv 256) for 2
+             epochs, ``--arch moco3d_18`` for 2 x MOCO_VOL_ITERS steps,
+             MOCO_SYM_STEPS steps of ``--moco_symmetric``: losses finite,
+             ``acc`` in [0, 1], the queue's rows unit vectors, its pointer
+             at steps x block mod r, the key apart from the query; then
+             ``embed`` from the default run's checkpoint
+- vol_migration reference-layout ``simsiamref_18`` / ``moco3dref_18`` /
+             MoCo-wrapper ``.pth`` files written from seeded port models,
+             each read strict by ``embed`` on one rec; proj against the
+             CPU forward within 1e-4
+
+In each, the four kernels' launch counts read 0; a ``walls`` line gives
+every exploration phase's wall.
+
 The model phase also runs ``res3d_2`` and ``res3dref_18``: the card's
 untiled forward against the CPU's, and one untiled forward of a
 256x512x512 volume with its device ms and peak memory. The kernels phase
@@ -202,6 +232,7 @@ from cet_pick_tpu_torch.io.mrc import read_mrc, write_mrc
 from cet_pick_tpu_torch.models.detector import create_detector
 from cet_pick_tpu_torch.ops._build import build_libraries
 from cet_pick_tpu_torch.ops import gram as G
+from cet_pick_tpu_torch.ops.augment import vol_out_size
 from cet_pick_tpu_torch.ops.decode import tomo_decode
 from cet_pick_tpu_torch.ops.nms import sigmoid_clamped
 from cet_pick_tpu_torch.ops.ztap_conv import (
@@ -1553,7 +1584,27 @@ EXPLORE_PARAM_TOL = 1e-5
 AUG_TOL = 1e-4
 DOG_TOL = 1e-6            # response abs, cutoff rel (tests/test_torch_explore_data.py)
 EXPLORE_ARGS = {"2d3d": ["--task", "simsiam2d3d", "--arch", "simsiam2d3d_18"],
-                "2d": ["--task", "simsiam3d", "--arch", "simsiam2d_18"]}
+                "2d": ["--task", "simsiam3d", "--arch", "simsiam2d_18"],
+                "vol": ["--task", "simsiam", "--arch", "simsiam_18"]}
+# exploration's 3D-subvolume mode and MoCo: explore --task simsiam
+# at its default vol_size 8x64x64 (6x48x48 after the crop), batch 256, its
+# epochs capped at VOL_ITERS steps; the three vol arches card against CPU
+# at batch 32; moco at its defaults (2d, simsiam2d_18, batch 128,
+# head_conv 256, a queue of 1024), moco3d_18 capped at MOCO_VOL_ITERS steps
+# an epoch, MOCO_SYM_STEPS steps of --moco_symmetric. The queue's rows are
+# unit vectors: their norms within QUEUE_NORM_TOL of 1; the MoCo step card
+# against CPU holds the queue within MOCO_QUEUE_TOL.
+VOL_SIZE = (8, 64, 64)
+VOL_ARCHS = ("simsiam_18", "simsiamref_18", "moco3dref_18")
+VOL_EPOCHS = 2
+VOL_ITERS = 24
+MOCO_EPOCHS = 2
+MOCO_BATCH = 128
+MOCO_QUEUE = 1024
+MOCO_VOL_ITERS = 15
+MOCO_SYM_STEPS = 20
+QUEUE_NORM_TOL = 1e-3
+MOCO_QUEUE_TOL = 1e-5
 
 
 def _plant(vol, centre, amp, sigma):
@@ -1641,15 +1692,71 @@ def explore_state_errors(card, cpu):
             if p.is_floating_point() and "running" not in k)}
 
 
+def encoder_step_card_vs_cpu(cfg, views, test, f64=False):
+    """The exploration encoder of ``cfg`` with seeded weights, the card
+    against the CPU: a train-mode two-view forward of ``views`` (loss, std,
+    proj / pred), its gradients, the BN running statistics and the
+    parameters after one SGD step, and an eval ``forward_test`` of the
+    split inputs ``test``. With ``f64``, also the same step in float64 on
+    the CPU, apart from the device under test, and each f32 pass's errors
+    against it. Returns (errors, bars, {"card_vs_f64": ..., "cpu_vs_f64":
+    ...} or None)."""
+    from cet_pick_tpu_torch.train.explore import prepare_explore, split_views
+
+    passes = [("cpu", "cpu", torch.float32), (DEVICE, DEVICE, torch.float32)]
+    if f64:
+        passes.append(("f64", "cpu", torch.float64))
+    out = {}
+    for name, dev, dtype in passes:
+        prepared = prepare_explore(cfg, log_fn=lambda *_: None,
+                                   device=dev)
+        model, state = prepared["model"], prepared["state"]
+        model.to(dtype)
+        model.train()
+        v1, v2 = (v.to(dev, dtype) for v in views)
+        ret1, ret2 = model(*split_views(v1, model.mode),
+                           *split_views(v2, model.mode))
+        loss, std = train_losses.simsiam_loss(ret1["pred"], ret1["proj"],
+                                              ret2["pred"], ret2["proj"])
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        state.optimizer.step()
+        model.eval()
+        with torch.no_grad():
+            emb = model.forward_test(*(t.to(dev, dtype) for t in test))
+        out[name] = {"loss": loss.detach().cpu(), "std": std.cpu(),
+                     "proj": torch.cat([ret1["proj"], ret2["proj"]]).cpu(),
+                     "pred": torch.cat([ret1["pred"], ret2["pred"]])
+                     .detach().cpu(),
+                     "eval_proj": emb["proj"].cpu(),
+                     "eval_pred": emb["pred"].cpu(), "grads": grads,
+                     "state": {k: v.cpu() for k, v in
+                               model.state_dict().items()}}
+        del prepared, model, state
+
+    def errors(a, b):
+        e = {k: float((a[k].double() - b[k].double()).abs().max())
+             for k in ("loss", "std", "proj", "pred", "eval_proj",
+                       "eval_pred")}
+        e.update(explore_state_errors(a, b))
+        return e
+
+    bars = {"loss": EXPLORE_LOSS_TOL, "std": EXPLORE_LOSS_TOL,
+            "bn_var_rel": EXPLORE_STAT_TOL, "bn_mean_rel": EXPLORE_STAT_TOL,
+            "grad_rel": EXPLORE_GRAD_TOL, "param_rel": EXPLORE_PARAM_TOL}
+    errs = errors(out[DEVICE], out["cpu"])
+    to64 = ({"card_vs_f64": errors(out[DEVICE], out["f64"]),
+             "cpu_vs_f64": errors(out["cpu"], out["f64"])} if f64 else None)
+    return errs, {k: bars.get(k, EXPLORE_OUT_TOL) for k in errs}, to64
+
+
 def phase_explore_model():
     """``simsiam2d3d_18`` (head_conv 128) with seeded weights, the card
-    against the CPU at bbox 36: a train-mode two-view forward (loss, std,
-    proj / pred), its gradients, the BN running statistics and the
-    parameters after one SGD step, and an eval ``forward_test`` of 16
-    patches; then both augment pipelines' apply on the same drawn
+    against the CPU at bbox 36 (``encoder_step_card_vs_cpu``, 16 patches in
+    the eval forward); then both augment pipelines' apply on the same drawn
     parameters at the explore batch."""
     from cet_pick_tpu_torch.ops import augment as A
-    from cet_pick_tpu_torch.train.explore import prepare_explore
 
     cfg = Config(task="simsiam2d3d", arch="simsiam2d3d_18", bbox=36,
                  lr=1e-3).finalize()
@@ -1661,38 +1768,7 @@ def phase_explore_model():
     test = [torch.from_numpy(rng.standard_normal((16, 1, 36, 36),
                                                  dtype=np.float32))
             for _ in range(2)]
-    out = {}
-    for dev in ("cpu", DEVICE):
-        prepared = prepare_explore(cfg, log_fn=lambda *_: None, device=dev)
-        model, state = prepared["model"], prepared["state"]
-        model.train()
-        v1, v2 = (v.to(dev) for v in views)
-        ret1, ret2 = model(v1[:, :1], v1[:, 1:], v2[:, :1], v2[:, 1:])
-        loss, std = train_losses.simsiam_loss(ret1["pred"], ret1["proj"],
-                                              ret2["pred"], ret2["proj"])
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
-        state.optimizer.step()
-        model.eval()
-        with torch.no_grad():
-            emb = model.forward_test(*(t.to(dev) for t in test))
-        out[dev] = {"loss": loss.detach().cpu(), "std": std.cpu(),
-                    "proj": torch.cat([ret1["proj"], ret2["proj"]]).cpu(),
-                    "pred": torch.cat([ret1["pred"], ret2["pred"]])
-                    .detach().cpu(),
-                    "eval_proj": emb["proj"].cpu(),
-                    "eval_pred": emb["pred"].cpu(), "grads": grads,
-                    "state": {k: v.cpu() for k, v in
-                              model.state_dict().items()}}
-    cpu, card = out["cpu"], out[DEVICE]
-    errs = {k: float((card[k] - cpu[k]).abs().max())
-            for k in ("loss", "std", "proj", "pred", "eval_proj",
-                      "eval_pred")}
-    errs.update(explore_state_errors(card, cpu))
-    bars = {"loss": EXPLORE_LOSS_TOL, "std": EXPLORE_LOSS_TOL,
-            "bn_var_rel": EXPLORE_STAT_TOL, "bn_mean_rel": EXPLORE_STAT_TOL,
-            "grad_rel": EXPLORE_GRAD_TOL, "param_rel": EXPLORE_PARAM_TOL}
+    errs, bars, _ = encoder_step_card_vs_cpu(cfg, views, test)
 
     gen = torch.Generator().manual_seed(0)
     x = torch.from_numpy(rng.random((EXPLORE_BATCH, 2, 36, 36),
@@ -1708,11 +1784,10 @@ def phase_explore_model():
                     mean[:c].to(DEVICE), std[:c].to(DEVICE), 36)
         errs[name] = float((got.cpu() - want).abs().max())
         bars[name] = AUG_TOL
-    fails = [k for k, v in errs.items()
-             if not v <= bars.get(k, EXPLORE_OUT_TOL)]
+    fails = [k for k, v in errs.items() if not v <= bars[k]]
     rec = {"phase": "explore_model", "arch": cfg.arch, "batch": b,
            "bbox": 36, "head_conv": cfg.head_conv, "card_vs_cpu": errs,
-           "bars": {k: bars.get(k, EXPLORE_OUT_TOL) for k in errs}}
+           "bars": bars}
     emit(rec)
     if fails:
         raise RuntimeError(f"explore_model: card != CPU at {fails}: {errs}")
@@ -1797,7 +1872,8 @@ def explore_mining(work):
     r_cpu, c_cpu = dog.dog_response(slab.cpu(), sigmas=(2.5, 5.0))
     rows_card = dog.dog_candidates_pyramid(slab.cpu().numpy(), (2.5, 5.0),
                                            device=DEVICE)[1]
-    rows_cpu = dog.dog_candidates_pyramid(slab.cpu().numpy(), (2.5, 5.0))[1]
+    rows_cpu = dog.dog_candidates_pyramid(slab.cpu().numpy(), (2.5, 5.0),
+                                          device="cpu")[1]
     rec["dog_card_vs_cpu"] = {
         "response_max_abs_err": float((r_card.cpu() - r_cpu).abs().max()),
         "cutoff_rel_err": abs(float(c_card) - float(c_cpu)) / abs(float(c_cpu)),
@@ -1811,18 +1887,21 @@ def explore_mining(work):
     return sizes
 
 
-def phase_explore(work, mode="2d3d", epochs=None):
+def phase_explore(work, mode="2d3d", epochs=None, extra=()):
     """``python -m cet_pick_tpu_torch explore`` at its defaults (2d3d; or
-    2d) on the exploration volumes: every epoch's loss finite and its std
-    monitor above EXPLORE_STD_GATE, ``model_last.pth`` written; samples/s
-    of each epoch's steps after its first, the peak device memory, the
-    (zero) kernel launches. Returns the record."""
-    phase = "explore" if mode == "2d3d" else "explore_2d"
+    2d; or vol, ``--task simsiam --arch simsiam_18`` at 8x64x64) on the
+    exploration volumes, with ``extra`` flags: every epoch's loss finite
+    and its std monitor above EXPLORE_STD_GATE, ``model_last.pth``
+    written, the kernels' launch counts 0; samples/s of each epoch's steps
+    after its first, the peak device memory. Returns the record."""
+    phase = {"2d3d": "explore", "2d": "explore_2d",
+             "vol": "explore_vol"}[mode]
     epochs = epochs or EXPLORE_EPOCHS
     argv = ["explore", *EXPLORE_ARGS[mode], "--exp_id", phase, "--data_dir",
             work, "--root_dir", work, "--device", DEVICE, "--train_img_txt",
             "explore_images.txt", "--num_epochs", str(epochs),
-            "--batch_size", str(EXPLORE_BATCH)]
+            "--batch_size", str(EXPLORE_BATCH), *extra,
+            *(vol_flags() if mode == "vol" else ())]
     torch.cuda.reset_peak_memory_stats()
     lines, launches, wall = run_cli(argv)
     means, rates = _epoch_lines(lines)
@@ -1833,7 +1912,9 @@ def phase_explore(work, mode="2d3d", epochs=None):
     ckpt = os.path.join(work, "exp", EXPLORE_ARGS[mode][1], phase,
                         "model_last.pth")
     rec = {"phase": phase, "arch": EXPLORE_ARGS[mode][3], "epochs": epochs,
-           "batch": EXPLORE_BATCH, "bbox": 36, "head_conv": 128,
+           "batch": EXPLORE_BATCH, "head_conv": 128, "extra": list(extra),
+           **({"vol_size": list(VOL_SIZE)} if mode == "vol" else
+              {"bbox": 36}),
            "training_samples": samples, "dataset_build_s": build,
            "epoch_means": means, "steady_samples_per_s": rates,
            "cli_wall_s": wall, "launches": launches,
@@ -1843,36 +1924,44 @@ def phase_explore(work, mode="2d3d", epochs=None):
     loss = [means[e]["loss"] for e in sorted(means)]
     std = [means[e]["std"] for e in sorted(means)]
     if len(loss) != epochs or not all(math.isfinite(v) for v in loss) \
-            or not min(std) > EXPLORE_STD_GATE or not rec["checkpoint"]:
+            or not min(std) > EXPLORE_STD_GATE or not rec["checkpoint"] \
+            or not no_launches(launches):
         raise RuntimeError(f"{phase}: loss {loss}, std {std}, checkpoint "
-                           f"{rec['checkpoint']}")
+                           f"{rec['checkpoint']}, launches {launches}")
     return rec
 
 
-def phase_explore_breakdown():
-    """One 2d3d explore step at batch 256 by stage, device ms from CUDA
-    events (each step synchronized): both views' augment, the two-view
-    forward, the loss, the backward, SGD; the wall time of unsynchronized
-    steps and the card's busy share from torch.profiler. A fresh model on
-    uniform [0, 1) patches (the step's device work does not depend on the
-    values)."""
+def phase_explore_breakdown(mode="2d3d"):
+    """One explore step at batch 256 by stage (2d3d at bbox 36, or vol at
+    8x64x64), device ms from CUDA events (each step synchronized): both
+    views' augment, the two-view forward, the loss, the backward, SGD; the
+    wall time of unsynchronized steps and the card's busy share from
+    torch.profiler. A fresh model on uniform [0, 1) inputs (the step's
+    device work does not depend on the values)."""
     from cet_pick_tpu_torch.train.explore import (
         make_simsiam_train_step,
         prepare_explore,
+        split_views,
     )
 
-    cfg = Config(task="simsiam2d3d", arch="simsiam2d3d_18", bbox=36,
-                 batch_size=EXPLORE_BATCH, lr=1e-3, cosine=True).finalize()
+    if mode == "vol":
+        cfg = Config(task="simsiam", arch="simsiam_18", vol_size=VOL_SIZE,
+                     batch_size=EXPLORE_BATCH, lr=1e-3, cosine=True).finalize()
+        shape, c = (EXPLORE_BATCH,) + VOL_SIZE, 1
+    else:
+        cfg = Config(task="simsiam2d3d", arch="simsiam2d3d_18", bbox=36,
+                     batch_size=EXPLORE_BATCH, lr=1e-3,
+                     cosine=True).finalize()
+        shape, c = (EXPLORE_BATCH, 2, 36, 36), 2
     prepared = prepare_explore(cfg, log_fn=lambda *_: None, device=DEVICE)
     model, state = prepared["model"], prepared["state"]
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    mean = torch.tensor([0.45, 0.5], device=DEVICE)
-    std = torch.tensor([0.2, 0.25], device=DEVICE)
+    mean = torch.tensor([0.45, 0.5][:c], device=DEVICE)
+    std = torch.tensor([0.2, 0.25][:c], device=DEVICE)
     step = make_simsiam_train_step(model, cfg, mean, std, gen)
     rng = np.random.default_rng(0)
-    batches = [{k: torch.from_numpy(rng.random((EXPLORE_BATCH, 2, 36, 36),
-                                               dtype=np.float32)).to(DEVICE)
-                for k in ("anchor", "aug")}
+    batches = [{k: torch.from_numpy(rng.random(shape, dtype=np.float32))
+                .to(DEVICE) for k in ("anchor", "aug")}
                for _ in range(3 + 3 * BREAKDOWN_STEPS)]
 
     def timed_step(batch):
@@ -1880,7 +1969,8 @@ def phase_explore_breakdown():
         model.train()
         v1, v2 = step.augment(batch)
         marks.append(_event())
-        ret1, ret2 = model(v1[:, :1], v1[:, 1:], v2[:, :1], v2[:, 1:])
+        ret1, ret2 = model(*split_views(v1, model.mode),
+                           *split_views(v2, model.mode))
         marks.append(_event())
         loss, _ = train_losses.simsiam_loss(ret1["pred"], ret1["proj"],
                                             ret2["pred"], ret2["proj"])
@@ -1892,6 +1982,8 @@ def phase_explore_breakdown():
         marks.append(_event())
         return marks
 
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     for b in batches[:3]:
         timed_step(b)
     torch.cuda.synchronize()
@@ -1923,20 +2015,51 @@ def phase_explore_breakdown():
          and not e.is_user_annotation
          and e.self_device_time_total > 0), key=lambda kv: -kv[1])
     device_ms = sum(ms for _, ms in kernels)
-    # 4 * batch patch-forwards a step (2 views x tilt + slice); the trunk's
-    # convs and the heads' dense layers, 2 FLOP a multiply-add; backward 2x
-    fwd_flop = 4 * EXPLORE_BATCH * explore_patch_flop(cfg.head_conv)
-    rec = {"phase": "explore_breakdown", "arch": cfg.arch, "what": "device "
-           "ms per explore step (2d3d, batch 256, bbox 36, head_conv 128)",
+    launches = read_launches()
+    # the trunk's convs and the heads' dense layers, 2 FLOP a multiply-add,
+    # per view and sample (4 patch-forwards a sample in 2d3d: 2 views x
+    # tilt + slice; 2 subvolume-forwards in vol); backward 2x
+    if mode == "vol":
+        fwd_flop = 2 * EXPLORE_BATCH * vol_trunk_flop(
+            cfg.head_conv, vol_out_size(VOL_SIZE))
+        what = "vol, batch 256, 8x64x64 -> 6x48x48, head_conv 128"
+    else:
+        fwd_flop = 4 * EXPLORE_BATCH * explore_patch_flop(cfg.head_conv)
+        what = "2d3d, batch 256, bbox 36, head_conv 128"
+    rec = {"phase": "explore_breakdown" + ("_vol" if mode == "vol" else ""),
+           "arch": cfg.arch, "what": f"device ms per explore step ({what})",
            "stages_ms": stages, "wall_ms_per_step": wall_ms,
            "samples_per_s_unsynchronized": 1e3 * EXPLORE_BATCH / wall_ms,
            "profiled_kernel_ms_per_step": device_ms,
            "device_busy_share": device_ms / wall_ms if device_ms else None,
            "top_kernels_ms_per_step": kernels[:10],
            "step_tflop": 3 * fwd_flop / 1e12,
-           "achieved_tflops": 3 * fwd_flop / wall_ms / 1e9}
+           "achieved_tflops": 3 * fwd_flop / wall_ms / 1e9,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
     emit(rec)
+    if not no_launches(launches):
+        CHECK_FAILURES.append(f"{rec['phase']}: kernel launches {launches}")
+    del batches, prepared, model, state
     return rec
+
+
+def vol_trunk_flop(head_conv, shape):
+    """FLOP of one subvolume's ``VolTrunk`` forward at post-crop ``shape``
+    (even xy: the space-to-depth stem, 4 -> 64 channels at k(3,4,4); the
+    3x3x3 convs and 1x1x1 downsamples of stages at strides (1,1,1) /
+    (2,2,2) / (1,2,2)) plus fc and the heads."""
+    d, h, w = shape[0], shape[1] // 2, shape[2] // 2
+    flop, cin = 2.0 * d * h * w * 64 * 4 * 48, 64  # stem
+    for feats, (sd, sh, sw) in ((64, (1, 1, 1)), (128, (2, 2, 2)),
+                                (256, (1, 2, 2))):
+        d, h, w = -(-d // sd), -(-h // sh), -(-w // sw)
+        n = d * h * w
+        flop += 2.0 * n * 27 * (cin * feats + 3 * feats * feats)
+        if cin != feats or (sd, sh, sw) != (1, 1, 1):
+            flop += 2.0 * n * cin * feats  # downsample
+        cin = feats
+    return flop + 2.0 * (256 * head_conv + 5 * head_conv ** 2)
 
 
 def explore_patch_flop(head_conv, hw=36):
@@ -1967,37 +2090,54 @@ def near_planted(names, coords, planted):
     return np.array(close, np.int64), np.array(labels, np.int64)
 
 
-def phase_embed(work, planted, sizes, mode="2d3d"):
-    """``python -m cet_pick_tpu_torch embed`` on an explore run's
-    ``model_last.pth``: the npz's keys, dtypes and shapes, ``proj`` finite,
-    as many rows as the test split has patches; the forward's patches/s,
-    and the 1-NN label agreement of ``proj`` between the two planted
-    classes over the candidates within NN_RADIUS px of a planted centre
-    (reported: JAX's slow test bars 0.65 at another schedule)."""
-    phase = "embed" if mode == "2d3d" else "embed_2d"
-    exp_id = "explore" if mode == "2d3d" else "explore_2d"
-    argv = ["embed", *EXPLORE_ARGS[mode], "--exp_id", exp_id, "--data_dir",
+def phase_embed(work, planted, n, mode="2d3d", spec=None):
+    """``python -m cet_pick_tpu_torch embed`` on the explore run of
+    ``mode``, or on what ``spec`` names instead (any of ``args``: the task
+    and arch flags, ``exp_id``, ``phase``, ``width``, ``txt``: the image
+    list, ``load_model``): the npz's keys, dtypes and shapes (``subvol``
+    (n, 36, 36), or (n, *VOL_SIZE) in vol mode), ``proj`` finite and
+    ``width`` wide, ``n`` rows, the kernels' launch counts 0; the forward's
+    patches/s, and the 1-NN label agreement of ``proj`` between the two
+    planted classes over the candidates within NN_RADIUS px of a planted
+    centre (reported: JAX's slow test bars 0.65 at another schedule)."""
+    spec = {"args": EXPLORE_ARGS[mode],
+            "exp_id": {"2d3d": "explore", "2d": "explore_2d",
+                       "vol": "explore_vol"}[mode],
+            "phase": {"2d3d": "embed", "2d": "embed_2d",
+                      "vol": "embed_vol"}[mode],
+            "width": 128, "txt": "explore_images.txt", **(spec or {})}
+    args, exp_id, phase, width = (spec[k] for k in ("args", "exp_id",
+                                                    "phase", "width"))
+    argv = ["embed", *args, "--exp_id", exp_id, "--data_dir",
             work, "--root_dir", work, "--device", DEVICE, "--test_img_txt",
-            "explore_images.txt"]
+            spec["txt"]]
+    if "load_model" in spec:
+        argv += ["--load_model", spec["load_model"]]
+    if mode == "vol":
+        argv += vol_flags()
     lines, launches, wall = run_cli(argv)
     m = next(re.search(r"forward ([0-9.]+)s for (\d+) patches", ln)
              for ln in lines if ln.startswith("embed:"))
-    out = np.load(os.path.join(work, "exp", EXPLORE_ARGS[mode][1], exp_id,
+    out = np.load(os.path.join(work, "exp", args[1], exp_id,
                                "all_output_info.npz"))
+    if n is None:  # no test split counted: as many rows as names, > 0
+        n = len(out["name"]) or -1
     keys = ["proj", "pred", "name", "coords", "subvol"] + (
         ["subvols_2d"] if mode == "2d3d" else [])
-    n = sizes[mode]
     shapes = {k: list(out[k].shape) for k in out.files}
     dtypes = {k: str(out[k].dtype) for k in out.files}
-    ok = (out.files == keys and shapes.get("proj") == [n, 128]
-          and shapes.get("pred") == [n, 128] and shapes.get("coords") == [n, 3]
-          and shapes.get("subvol") == [n, 36, 36]
+    sub = list(VOL_SIZE) if mode == "vol" else [36, 36]
+    ok = (out.files == keys and shapes.get("proj") == [n, width]
+          and shapes.get("pred") == [n, width]
+          and shapes.get("coords") == [n, 3]
+          and shapes.get("subvol") == [n, *sub]
           and all(dtypes[k] == "float32" for k in keys if k != "name")
           and dtypes["name"].startswith("<U")
-          and bool(np.isfinite(out["proj"]).all()))
+          and bool(np.isfinite(out["proj"]).all()) and no_launches(launches))
     emb = out["proj"].astype(np.float64)
     emb /= np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
-    close, labels = near_planted(out["name"], out["coords"], planted)
+    close, labels = (near_planted(out["name"], out["coords"], planted)
+                     if planted else (np.zeros(0, np.int64),) * 2)
     agree = None
     if len(set(labels)) == 2:
         e = emb[close]
@@ -2005,8 +2145,8 @@ def phase_embed(work, planted, sizes, mode="2d3d"):
         np.fill_diagonal(sim, -np.inf)
         lab = np.array(labels)
         agree = float((lab[sim.argmax(1)] == lab).mean())
-    rec = {"phase": phase, "keys": out.files, "shapes": shapes,
-           "dtypes": dtypes, "test_split_patches": n,
+    rec = {"phase": phase, "argv": argv[1:], "keys": out.files,
+           "shapes": shapes, "dtypes": dtypes, "test_split_patches": n,
            "forward_s": float(m.group(1)),
            "patches_per_s": int(m.group(2)) / float(m.group(1)),
            "near_planted": len(close),
@@ -2016,8 +2156,275 @@ def phase_embed(work, planted, sizes, mode="2d3d"):
     emit(rec)
     if not ok:
         raise RuntimeError(f"{phase}: bad all_output_info.npz: {shapes}, "
-                           f"{dtypes}, expected {n} rows")
+                           f"{dtypes}, expected {n} rows; launches "
+                           f"{launches}")
+    rec["npz"] = out
     return rec
+
+
+def vol_flags():
+    return ["--vol_size", *(str(v) for v in VOL_SIZE)]
+
+
+def no_launches(launches):
+    """Whether no kernel of the port launched (the exploration paths run
+    none of them)."""
+    return launches["ztap_dilated_conv"] == 0 and all(
+        v == 0 for fn in GRAMS for v in launches[fn.__name__].values())
+
+
+def moco_step_card_vs_cpu(cfg, v_q, v_k):
+    """One MoCo step (``train/moco.moco_update``) from one init on the same
+    views, the card against the CPU: the loss, the queue's rows, the
+    pointer, the query's parameters after SGD (of max(1, each tensor's
+    largest)), the key's EMA parameters and its BN buffers (of each
+    tensor's largest), which must equal the query's pre-step ones."""
+    from cet_pick_tpu_torch.train import moco as M
+
+    out = {}
+    for dev in ("cpu", DEVICE):
+        state = M.prepare_moco(cfg, log_fn=lambda *_: None,
+                               device=dev)["state"]
+        pre = {k: v.clone() for k, v in state.model.state_dict().items()
+               if "running" in k}
+        m = M.moco_update(state, v_q.to(dev), v_k.to(dev))
+        key = state.key_model.state_dict()
+        out[dev] = {"loss": float(m["loss"]), "acc": float(m["acc"]),
+                    "queue": state.queue.cpu(), "ptr": state.queue_ptr,
+                    "query": {k: v.cpu() for k, v in
+                              state.model.state_dict().items()},
+                    "key": {k: v.cpu() for k, v in key.items()},
+                    "key_bn_is_pre_step": all(torch.equal(key[k], v)
+                                              for k, v in pre.items())}
+        del state
+    cpu, card = out["cpu"], out[DEVICE]
+    params = [k for k, v in cpu["query"].items()
+              if v.is_floating_point() and "running" not in k]
+    errs = {
+        "loss": abs(card["loss"] - cpu["loss"]),
+        "queue": float((card["queue"] - cpu["queue"]).abs().max()),
+        "query_param_rel": max(_rel_err(card["query"][k], cpu["query"][k],
+                                        max(1.0, float(cpu["query"][k]
+                                                       .abs().max())))
+                               for k in params),
+        "key_param_rel": max(_rel_err(card["key"][k], cpu["key"][k],
+                                      max(1.0, float(cpu["key"][k]
+                                                     .abs().max())))
+                             for k in params),
+        "key_bn_rel": max(_rel_err(card["key"][k], cpu["key"][k])
+                          for k in cpu["key"] if "running" in k)}
+    bars = {"loss": EXPLORE_LOSS_TOL, "queue": MOCO_QUEUE_TOL,
+            "query_param_rel": EXPLORE_PARAM_TOL,
+            "key_param_rel": EXPLORE_PARAM_TOL,
+            "key_bn_rel": EXPLORE_STAT_TOL}
+    ok = (all(errs[k] <= bars[k] for k in bars)
+          and cpu["ptr"] == card["ptr"] == v_k.shape[0]
+          and cpu["key_bn_is_pre_step"] and card["key_bn_is_pre_step"])
+    return {"card_vs_cpu": errs, "bars": bars, "ptr": [cpu["ptr"],
+                                                       card["ptr"]],
+            "acc": [cpu["acc"], card["acc"]],
+            "key_bn_is_pre_step": [cpu["key_bn_is_pre_step"],
+                                   card["key_bn_is_pre_step"]]}, ok
+
+
+def phase_vol_model():
+    """The three vol arches (``simsiam_18``, ``simsiamref_18``,
+    ``moco3dref_18``) at full width, 8x64x64 subvolumes (6x48x48 after
+    the crop), batch 32, the card against the CPU
+    (``encoder_step_card_vs_cpu``: train and eval forwards, one SGD step's
+    loss, gradients and parameters), each quantity within its explore bar
+    of the CPU's f32 step, or, where the CPU's own f32 rounding puts it
+    beyond the bar, within the bar of the same step in float64 on the CPU
+    (a card-only fault shows against either; at these inputs
+    simsiamref_18's CPU f32 proj lies 1.3e-4 from float64 and simsiam_18's
+    gradients 0.12 of a tensor's largest: the BatchNorms of small batches
+    amplify rounding); the vol augment's apply on one set of
+    drawn parameters at batch 256; one MoCo step (``moco3d_18``,
+    head_conv 256, batch 32). The kernels launch 0 times."""
+    from cet_pick_tpu_torch.ops import augment as A
+
+    rng = np.random.default_rng(13)
+    shape = vol_out_size(VOL_SIZE)
+    b = EXPLORE_MODEL_BATCH
+    views = [torch.from_numpy(rng.standard_normal((b,) + shape,
+                                                  dtype=np.float32))
+             for _ in range(2)]
+    test = [torch.from_numpy(rng.standard_normal((16, 1) + shape,
+                                                 dtype=np.float32))]
+    t0 = time.perf_counter()
+    reset_launches()
+    rec = {"phase": "vol_model", "batch": b, "vol_size": list(VOL_SIZE),
+           "archs": {}}
+    fails = []
+    for arch in VOL_ARCHS:
+        cfg = Config(task="simsiam", arch=arch, vol_size=VOL_SIZE,
+                     lr=1e-3).finalize()
+        errs, bars, to64 = encoder_step_card_vs_cpu(cfg, views, test,
+                                                    f64=True)
+        rec["archs"][arch] = {"card_vs_cpu": errs, "bars": bars, **to64}
+        # the card within the bar of the CPU's f32 step, or within the bar
+        # of its float64 step where f32 rounding at these inputs puts the
+        # CPU's own f32 step beyond the bar
+        fails += [f"{arch}: {k}" for k, v in errs.items()
+                  if not (v <= bars[k] or to64["card_vs_f64"][k] <= bars[k])]
+    x = torch.from_numpy(rng.standard_normal((EXPLORE_BATCH,) + VOL_SIZE,
+                                             dtype=np.float32))
+    params = A.draw_simsiam_vol_params(EXPLORE_BATCH, VOL_SIZE,
+                                       torch.Generator().manual_seed(0),
+                                       "cpu")
+    want = A.apply_simsiam_vol(x, params)
+    got = A.apply_simsiam_vol(x.to(DEVICE), {k: v.to(DEVICE)
+                                             for k, v in params.items()})
+    rec["augment_vol"] = float((got.cpu() - want).abs().max())
+    if not rec["augment_vol"] <= AUG_TOL:
+        fails.append("augment_vol")
+    del x, want, got, params
+    cfg = Config(task="moco", arch="moco3d_18", vol_size=VOL_SIZE,
+                 head_conv=256, batch_size=b, lr=1e-3).finalize()
+    rec["moco_step"], ok = moco_step_card_vs_cpu(cfg, *views)
+    if not ok:
+        fails.append("moco_step")
+    rec["launches"] = read_launches()
+    if not no_launches(rec["launches"]):
+        fails.append("kernel launches")
+    rec["wall_s"] = time.perf_counter() - t0
+    emit(rec)
+    if fails:
+        CHECK_FAILURES.append(f"vol_model: card != CPU at {fails}")
+    return rec
+
+
+def phase_moco(work, planted, n_2d):
+    """``python -m cet_pick_tpu_torch moco`` on the exploration volumes: at
+    its defaults (2d, batch 128, head_conv 256) for MOCO_EPOCHS epochs;
+    ``--arch moco3d_18`` (vol) with MOCO_VOL_ITERS steps an epoch;
+    MOCO_SYM_STEPS steps of ``--moco_symmetric``. Gates on each run:
+    losses finite, ``acc`` in [0, 1], the queue's rows of unit norm within
+    QUEUE_NORM_TOL, ``queue_ptr`` == steps x block mod r, the key's
+    parameters apart from the query's, no kernel launches. Then ``embed``
+    from the default run's checkpoint (``phase_embed``). Reports epoch
+    wall, samples/s and peak bytes."""
+    runs = {"moco": [],
+            "moco_vol": ["--arch", "moco3d_18", "--num_iters",
+                         str(MOCO_VOL_ITERS), *vol_flags()],
+            "moco_symmetric": ["--moco_symmetric", "--num_epochs", "1",
+                               "--num_iters", str(MOCO_SYM_STEPS)]}
+    recs = {}
+    for exp_id, extra in runs.items():
+        argv = ["moco", "--exp_id", exp_id, "--data_dir", work, "--root_dir",
+                work, "--device", DEVICE, "--train_img_txt",
+                "explore_images.txt", "--num_epochs", str(MOCO_EPOCHS),
+                "--batch_size", str(MOCO_BATCH), *extra]
+        torch.cuda.reset_peak_memory_stats()
+        lines, launches, wall = run_cli(argv)
+        steps = {}
+        means, rates = _epoch_lines(lines, steps)
+        samples = int(next(re.search(r"\((\d+) training samples\)", ln)
+                           .group(1) for ln in lines
+                           if ln.startswith("dataset build")))
+        build = next(float(re.search(r"dataset build: ([0-9.]+)s", ln)
+                           .group(1)) for ln in lines
+                     if ln.startswith("dataset build"))
+        ckpt = torch.load(os.path.join(work, "exp", "moco", exp_id,
+                                       "model_last.pth"), weights_only=True)
+        sd = ckpt["state_dict"]
+        queue, ptr = sd["queue"], int(sd["queue_ptr"])
+        blk = MOCO_BATCH * (2 if "--moco_symmetric" in extra else 1)
+        r = queue.shape[0]
+        # each epoch's step count: from its rate line, or 1 without one
+        total = sum(steps.get(e, 1) for e in means)
+        norms = queue.double().norm(dim=1)
+        apart = any(not torch.equal(v, sd["encoder_q." + k[len("encoder_k."):]])
+                    for k, v in sd.items() if k.startswith("encoder_k.")
+                    and v.is_floating_point() and "running" not in k)
+        rec = {"phase": exp_id, "argv": argv[1:], "training_samples": samples,
+               "dataset_build_s": build, "epoch_means": means,
+               "steady_samples_per_s": rates, "steps": total,
+               "queue": list(queue.shape), "queue_ptr": ptr,
+               "expected_ptr": total * blk % r,
+               "queue_norm_err": float((norms - 1).abs().max()),
+               "key_apart_from_query": apart, "cli_wall_s": wall,
+               "launches": launches,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        emit(rec)
+        vals = [v for e in means.values() for v in e.values()]
+        accs = [e["acc"] for e in means.values()]
+        if not (vals and all(math.isfinite(v) for v in vals)
+                and all(0.0 <= a <= 1.0 for a in accs)
+                and rec["queue_norm_err"] <= QUEUE_NORM_TOL
+                and r == MOCO_QUEUE and ptr == rec["expected_ptr"]
+                and apart and no_launches(launches)):
+            CHECK_FAILURES.append(f"{exp_id}: {rec}")
+        recs[exp_id] = rec
+    recs["embed_moco"] = phase_embed(work, planted, n_2d, "2d", {
+        "args": ["--task", "moco", "--arch", "simsiam2d_18", "--head_conv",
+                 "256"],
+        "exp_id": "moco", "phase": "embed_moco", "width": 256})
+    return recs
+
+
+def phase_vol_migration(work):
+    """Reference-layout ``.pth`` files written from seeded port models: a
+    ``simsiamref_18`` (``TomoResClassifier``) and a ``moco3dref_18``
+    (``TomoResClassifier3D``, no ``pred``) under DataParallel's
+    ``module.`` with no ``num_batches_tracked``, and a reference MoCo
+    wrapper (``encoder_q.*`` / ``encoder_k.*`` of a simsiamref_18 and a
+    (dim, K) queue). ``embed`` reads each one strict on the card over a
+    64-slice slab of one rec (``explore_one.txt``); ``proj`` of the first
+    64 rows against the model's CPU forward of the same test views within
+    EXPLORE_OUT_TOL. The kernels launch 0 times."""
+    from cet_pick_tpu_torch.models.convert import load_simsiam_checkpoint
+    from cet_pick_tpu_torch.models.simsiam import create_simsiam
+    from cet_pick_tpu_torch.ops.augment import vol_test_view
+
+    # a 64-slice slab of the first rec (on disk as xzy: z is axis 1)
+    rec = read_mrc(os.path.join(work, "exp_a.rec"))
+    mid = rec.shape[1] // 2
+    write_mrc(os.path.join(work, "exp_slab.rec"),
+              np.ascontiguousarray(rec[:, max(0, mid - 32):mid + 32]))
+    del rec
+    with open(os.path.join(work, "explore_one.txt"), "w") as fh:
+        fh.write(f"image_name\trec_path\nexp_slab\t{work}/exp_slab.rec\n")
+    recs = []
+    for name, arch in (("simsiamref", "simsiamref_18"),
+                       ("moco3dref", "moco3dref_18"),
+                       ("moco_wrapper", "simsiamref_18")):
+        cfg = Config(task="simsiam", arch=arch, vol_size=VOL_SIZE).finalize()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(len(name))
+            model = create_simsiam(cfg)
+        sd = {k: v for k, v in model.state_dict().items()
+              if not k.endswith("num_batches_tracked")
+              and not (arch == "moco3dref_18" and k.startswith("pred."))}
+        if name == "moco_wrapper":
+            sd = {**{"encoder_q." + k: v for k, v in sd.items()},
+                  **{"encoder_k." + k: v.clone() for k, v in sd.items()},
+                  "queue": torch.randn(256, MOCO_QUEUE),
+                  "queue_ptr": torch.zeros(1, dtype=torch.long)}
+        path = os.path.join(work, f"{name}.pth")
+        torch.save({"epoch": 30, "state_dict": {"module." + k: v
+                                                for k, v in sd.items()}},
+                   path)
+        rec = phase_embed(work, None, None, "vol", {
+            "args": ["--task", "simsiam", "--arch", arch],
+            "exp_id": f"migrate_{name}", "phase": f"vol_migration_{name}",
+            "width": model.head_conv, "load_model": path,
+            "txt": "explore_one.txt"})
+        npz = rec.pop("npz")
+        cpu = create_simsiam(cfg)
+        cpu.load_state_dict(load_simsiam_checkpoint(
+            path, fill=cpu.state_dict()), strict=True)
+        cpu.eval()
+        with torch.no_grad():
+            want = cpu.forward_test(torch.from_numpy(
+                vol_test_view(npz["subvol"][:64]))[:, None])["proj"]
+        err = float((torch.from_numpy(npz["proj"][:64]) - want).abs().max())
+        recs.append({"file": name, "arch": arch, "rows": len(npz["proj"]),
+                     "proj_card_vs_cpu": err, "bar": EXPLORE_OUT_TOL})
+        if not err <= EXPLORE_OUT_TOL:
+            CHECK_FAILURES.append(f"vol_migration {name}: proj {err}")
+    emit({"phase": "vol_migration", "files": recs})
+    return recs
 
 
 # exploration's clustering and selection (PR 9): plot2d's k-means (256
@@ -2695,7 +3102,13 @@ def main(argv=None):
         phase_model(arch)
     for arch in ("res3d_2", "res3dref_18"):
         phase_model_3d(arch)
+    walls = {}
+    t_phase = time.perf_counter()
     phase_explore_model()
+    walls["explore_model"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    phase_vol_model()
+    walls["vol_model"] = time.perf_counter() - t_phase
     with tempfile.TemporaryDirectory() as work:
         names, planted = write_data(work)
         _, train_launches, pn_launches = phase_train(work)
@@ -2731,16 +3144,38 @@ def main(argv=None):
                                      "semi3d", phase="semi3d_test",
                                      ckpt="model_best.pth", gate=False,
                                      task="semi3d")
+        t_phase = time.perf_counter()
         explore_data = write_explore_data(work)
         sizes = explore_mining(work)
+        walls["explore_data"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
         phase_explore(work)
         phase_explore_breakdown()
-        phase_embed(work, explore_data, sizes)
+        phase_embed(work, explore_data, sizes["2d3d"])
         phase_cluster(work, explore_data)
         phase_scan(work, explore_data)
         phase_scan_finetune(work, explore_data)
+        walls["explore_2d3d"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
         phase_explore(work, "2d", EXPLORE_2D_EPOCHS)
-        phase_embed(work, explore_data, sizes, "2d")
+        phase_embed(work, explore_data, sizes["2d"], "2d")
+        walls["explore_2d"] = time.perf_counter() - t_phase
+        # exploration's 3D-subvolume mode and MoCo
+        t_phase = time.perf_counter()
+        vol = phase_explore(work, "vol", VOL_EPOCHS,
+                            ["--num_iters", str(VOL_ITERS)])
+        walls["explore_vol"] = time.perf_counter() - t_phase
+        for label, fn, fn_args in (
+                ("explore_breakdown_vol", phase_explore_breakdown, ("vol",)),
+                ("embed_vol", phase_embed,
+                 (work, explore_data, vol["training_samples"], "vol")),
+                ("moco", phase_moco, (work, explore_data, sizes["2d"])),
+                ("vol_migration", phase_vol_migration, (work,))):
+            t_phase = time.perf_counter()
+            fn(*fn_args)
+            walls[label] = time.perf_counter() - t_phase
+    emit({"phase": "walls", "what": "wall s of the exploration phases",
+          "wall_s": walls})
     if CHECK_FAILURES:
         raise RuntimeError(f"failed: {CHECK_FAILURES}")
     kernels = [
@@ -2784,7 +3219,8 @@ def main(argv=None):
         k["peaks"] = peaks["variant"]
     print(smi)
     emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 

@@ -117,11 +117,13 @@ def test_embed_reads_a_reference_pth(tmp_path, data_dir):
 
 
 @pytest.mark.parametrize("argv", [
-    ["explore", "--task", "simsiam"],
-    ["explore", "--task", "simsiam3d", "--arch", "moco3d_18"],
-    ["embed", "--task", "moco", "--arch", "simsiam2d_18"],
+    ["explore", "--task", "simsiam", "--dtype", "bfloat16"],
+    ["moco", "--arch", "moco3d_18", "--dtype", "bfloat16"],
+    ["embed", "--task", "moco", "--arch", "simsiam2d_18", "--dtype",
+     "bfloat16"],
 ])
 def test_unported_exploration_modes_exit_nonzero(argv, capsys):
+    """bfloat16 encoders are not ported yet (the vol mode and MoCo are)."""
     assert main([*argv, "--device", "cpu"]) == 2
     assert "not yet ported" in capsys.readouterr().out
 

@@ -64,7 +64,7 @@ def test_cuda_device_without_cuda_raises():
         TomoDetector(cfg, state_dict={}, device="cuda")
 
 
-@pytest.mark.parametrize("cmd", ["train", "export-torch", "denoise", "moco"])
+@pytest.mark.parametrize("cmd", ["train", "export-torch", "denoise", "fewshot"])
 def test_unported_commands_exit_nonzero(cmd, capsys):
     """Unported commands, and ``train`` for the tasks other than semi,
     semi3d, semiclass, tomo and cr; the commands of the port's slices so
@@ -72,9 +72,9 @@ def test_unported_commands_exit_nonzero(cmd, capsys):
     for ported in ("classify-test", "explore", "embed", "watch", "classify",
                    "merge", "pr-curve", "remove-golds", "gen-files", "flags",
                    "doctor", "scan", "scan-finetune", "plot2d", "phoenix",
-                   "to-coords", "sublabels", "visualize3d"):
+                   "to-coords", "sublabels", "visualize3d", "moco"):
         assert ported not in NOT_PORTED and ported in COMMANDS
-    assert set(NOT_PORTED) == {"moco", "fewshot", "denoise",
+    assert set(NOT_PORTED) == {"fewshot", "denoise",
                                "extract-spectrum", "match-spectrum",
                                "backproject", "export-torch", "import-torch"}
     if cmd == "train":
