@@ -80,6 +80,29 @@ Ported so far:
                  hold over two polls (``--once``: the backlog, then exit),
                  record it in ``<out>/.watch_manifest.tsv``; a corrupt file
                  is recorded ``failed`` and the service goes on
+  fewshot        few-shot picking (task fs, reference main.py fs): unet_N
+                 pixel embeddings clustered by constrained k-means around
+                 labeled points (the coordinate table's ``label`` column: 1
+                 target, 2 other), vmf + partial supcon, Adam; writes
+                 ``model_last.pth`` and ``cluster_centers.npy``;
+                 ``--write_picks``: the target prototype's similarity over
+                 each whole volume, decoded to ``{name}.txt`` picks under
+                 ``--out_path``
+  denoise        blind-spot denoiser training (SSDN, task denoise) on
+                 random slice crops (``--crop``, ``--exclude``), ramped LR,
+                 ``--num_iters`` iterations (2000 when unset); writes
+                 ``model_last.pth``; ``--load_model`` (a ``.pth`` or a JAX
+                 ``denoise.msgpack`` directory) applies a trained denoiser
+                 instead; ``--write_denoised``: ``{name}_denoised.mrc``
+  extract-spectrum  radially averaged amplitude spectrum of a volume
+                 (``-i``) -> ``.tsv`` (``-o``)
+  match-spectrum filter a volume (``-i``) to a target spectrum ``.tsv``
+                 (``-t``), optional low-pass ``-c`` (hard, or ``-s``
+                 smoothed); ``-o`` keeps the input's voxel size
+  backproject    Fourier-voxel reconstruction of a particle stack
+                 (``--particles`` .mrcs, ``--poses`` cryoDRGN .pkl) -> ``-o``
+                 .mrc; ``--invert-data``, ``--first``, ``--tilt`` /
+                 ``--tilt-deg``
   classify       voxel classifier training (task tcla, reference
                  main_class.py): BCE on the ``class`` head, ``unet_4``,
                  ``--pn``; ``model_last.pth``
@@ -115,10 +138,7 @@ from cet_pick_tpu_torch.cli.common import add_config_arguments, config_from_args
 from cet_pick_tpu_torch.config import Config
 
 # the JAX package's other commands, in its order (cet_pick_tpu/__main__.py)
-NOT_PORTED = (
-    "fewshot", "denoise", "extract-spectrum", "match-spectrum",
-    "backproject", "export-torch", "import-torch",
-)
+NOT_PORTED = ("export-torch", "import-torch")
 
 
 def _parser(prog, defaults):
@@ -129,14 +149,28 @@ def _parser(prog, defaults):
     return parser
 
 
-def _host_parser(prog):
-    """The parser of a host command (no tensor work): it takes ``--device``
-    too, so that every command of the port accepts the flag."""
+def _host_parser(prog, computes=False):
+    """The parser of a command with no Config flags. A host command (no
+    tensor work) takes ``--device`` too, so that every command of the port
+    accepts the flag; with ``computes`` the command runs on it."""
     parser = argparse.ArgumentParser(prog=prog)
-    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                        help="accepted for every command; this one computes "
-                             "nothing on a device")
+    parser.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="device to run on (default: cuda)" if computes else
+        "accepted for every command; this one computes nothing on a device")
     return parser
+
+
+def _not_float32(prog, cfg):
+    """True, with the message, where ``--dtype`` asks for what is not ported
+    yet (bfloat16)."""
+    if cfg.dtype == "float32":
+        return False
+    cmd = prog.split()[-1]
+    print(f"{cmd} --dtype {cfg.dtype} is not yet ported to "
+          f"cet_pick_tpu_torch (it runs float32); run it with "
+          f"`python -m cet_pick_tpu {cmd}`")
+    return True
 
 
 TRAIN_TASKS = ("semi", "semi3d", "semiclass", "tomo", "cr")
@@ -632,6 +666,210 @@ def cmd_classify(argv):
     logger.close()
 
 
+def cmd_fewshot(argv):
+    """Few-shot constrained-kmeans training, task fs
+    (cet_pick_tpu/__main__.py:316-358); ``--write_picks`` decodes the
+    target prototype's similarity over each whole volume."""
+    parser = _parser("cet_pick_tpu_torch fewshot",
+                     Config(task="fs", arch="unet_4", contrastive=True,
+                            batch_size=1, lr=1e-3, num_epochs=20))
+    parser.add_argument("--write_picks", action="store_true",
+                        help="decode target-prototype similarity into "
+                             "detection txts after training")
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args)
+    if _not_float32(parser.prog, cfg):
+        return 2
+    for f in (cfg.train_img_txt, cfg.train_coord_txt):
+        if not os.path.exists(os.path.join(cfg.data_dir, f)):
+            raise FileNotFoundError(os.path.join(cfg.data_dir, f))
+    from cet_pick_tpu_torch.data.fewshot_dataset import FewshotDataset
+    from cet_pick_tpu_torch.infer.detector import set_float32_precision
+    from cet_pick_tpu_torch.ops.decode import tomo_decode
+    from cet_pick_tpu_torch.train.fewshot import (
+        fewshot_similarity,
+        train_fewshot,
+    )
+    from cet_pick_tpu_torch.train.refine import prepare_refine
+    from cet_pick_tpu_torch.utils.logger import Logger
+
+    set_float32_precision(cfg.dtype)
+    logger = Logger(cfg)
+    log = logger.log
+    prepared = prepare_refine(cfg, log_fn=log, device=args.device)
+    ds = FewshotDataset(cfg, "train")
+    _, centers, _ = train_fewshot(cfg, ds, log_fn=log, prepared=prepared)
+    if args.write_picks:
+        os.makedirs(cfg.out_path, exist_ok=True)
+        for i, name in enumerate(ds.names):
+            sim = fewshot_similarity(prepared["model"], centers, ds.tomos[i])
+            dets = tomo_decode(sim, kernel=cfg.nms, k=cfg.K).cpu().numpy()
+            out = os.path.join(cfg.out_path, f"{name}.txt")
+            with open(out, "w") as f:
+                for x, y, z, s, _ in dets:
+                    if s > cfg.out_thresh:
+                        f.write(f"{int(x * cfg.down_ratio)}\t{int(z)}\t"
+                                f"{int(y * cfg.down_ratio)}\n")
+            log(f"wrote {out}")
+    logger.close()
+
+
+def cmd_denoise(argv):
+    """Self-supervised denoise training + volume output, task denoise
+    (cet_pick_tpu/__main__.py:361-420)."""
+    parser = _parser("cet_pick_tpu_torch denoise",
+                     Config(task="denoise", arch="unet_4", lr=1e-3,
+                            batch_size=8))
+    parser.add_argument("--crop", type=int, default=128)
+    parser.add_argument("--exclude", type=int, default=200,
+                        help="border band crops never touch (reference "
+                             "RandomCropNoBorder exclude, tomo_denoise.py:51)")
+    parser.add_argument("--write_denoised", action="store_true")
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args)
+    if _not_float32(parser.prog, cfg):
+        return 2
+    # --num_iters (-1 = unset) is the iteration budget here
+    num_iters = cfg.num_iters if cfg.num_iters > 0 else 2000
+    from cet_pick_tpu_torch.infer.detector import set_float32_precision
+    from cet_pick_tpu_torch.io.coords import read_image_list
+    from cet_pick_tpu_torch.io.loader import load_tomos_from_list
+    from cet_pick_tpu_torch.io.mrc import write_mrc
+    from cet_pick_tpu_torch.train.denoise import (
+        DenoiseDataset,
+        create_denoise_state,
+        denoise_volume,
+        load_denoise_checkpoint,
+        save_denoise_checkpoint,
+        train_denoise,
+    )
+    from cet_pick_tpu_torch.utils.logger import Logger
+
+    set_float32_precision(cfg.dtype)
+    state = create_denoise_state(cfg, device=args.device)  # fails fast
+    il = read_image_list(os.path.join(cfg.data_dir, cfg.train_img_txt))
+    images = load_tomos_from_list(
+        il["image_name"], il["rec_path"], order=cfg.order,
+        compress=cfg.compress, denoise=cfg.gauss)
+    logger = Logger(cfg)
+    log = logger.log
+    if cfg.load_model:
+        # apply-only: restore a trained denoiser instead of training one
+        load_denoise_checkpoint(cfg.load_model, state)
+        log(f"loaded denoiser from {cfg.load_model} (step {state.step})")
+    else:
+        ds = DenoiseDataset(images, crop=args.crop, exclude=args.exclude)
+        t0 = time.perf_counter()
+        state, _ = train_denoise(cfg, ds, num_iters=num_iters, log_fn=log,
+                                 state=state)
+        log(f"trained {num_iters} iterations in "
+            f"{time.perf_counter() - t0:.3f}s")
+        ck = os.path.join(cfg.save_dir, "model_last.pth")
+        save_denoise_checkpoint(ck, state, cfg)
+        log(f"saved denoiser to {ck}")
+    if args.write_denoised:
+        for name, vol in images.items():
+            t0 = time.perf_counter()
+            den = denoise_volume(state, vol)
+            out = os.path.join(cfg.save_dir, f"{name}_denoised.mrc")
+            write_mrc(out, den)
+            log(f"wrote {out} ({time.perf_counter() - t0:.3f}s)")
+    logger.close()
+
+
+def cmd_extract_spectrum(argv):
+    """Radially averaged amplitude spectrum of a tomogram
+    (cet_pick_tpu/__main__.py:910-922)."""
+    parser = _host_parser("cet_pick_tpu_torch extract-spectrum",
+                          computes=True)
+    parser.add_argument("-i", "--input", required=True,
+                        help=".mrc/.rec tomogram")
+    parser.add_argument("-o", "--output", required=True, help="output .tsv")
+    a = parser.parse_args(argv)
+    from cet_pick_tpu_torch.io.mrc import read_mrc
+    from cet_pick_tpu_torch.utils.reconstruct import (
+        extract_spectrum,
+        save_spectrum,
+    )
+
+    spec = extract_spectrum(read_mrc(a.input).astype("float32"),
+                            device=a.device)
+    save_spectrum(a.output, spec)
+    print(f"wrote {len(spec)}-bin spectrum to {a.output}")
+
+
+def cmd_match_spectrum(argv):
+    """Filter a tomogram to match a target amplitude spectrum
+    (cet_pick_tpu/__main__.py:925-944); the output keeps the input's voxel
+    size."""
+    parser = _host_parser("cet_pick_tpu_torch match-spectrum",
+                          computes=True)
+    parser.add_argument("-i", "--input", required=True)
+    parser.add_argument("-t", "--target", required=True, help="spectrum .tsv")
+    parser.add_argument("-o", "--output", required=True)
+    parser.add_argument("-c", "--cutoff", type=int, default=None)
+    parser.add_argument("-s", "--smoothen", type=float, default=0.0)
+    a = parser.parse_args(argv)
+    from cet_pick_tpu_torch.io.mrc import read_mrc, write_mrc
+    from cet_pick_tpu_torch.utils.reconstruct import (
+        load_spectrum,
+        match_spectrum,
+    )
+
+    tomo, hdr = read_mrc(a.input, return_header=True)
+    out = match_spectrum(tomo.astype("float32"), load_spectrum(a.target),
+                         cutoff=a.cutoff, smooth=a.smoothen, device=a.device)
+    write_mrc(a.output, out, voxel_size=hdr.voxel_size)
+    print(f"wrote matched tomogram to {a.output}")
+
+
+def cmd_backproject(argv):
+    """Fourier-voxel backprojection of a particle stack with poses
+    (cet_pick_tpu/__main__.py:947-988)."""
+    parser = _host_parser("cet_pick_tpu_torch backproject", computes=True)
+    parser.add_argument("--particles", required=True, help=".mrcs stack")
+    parser.add_argument("--poses", required=True, help="pose .pkl")
+    parser.add_argument("-o", required=True, help="output .mrc")
+    parser.add_argument("--invert-data", action="store_true")
+    parser.add_argument("--first", type=int, default=10000,
+                        help="backproject the first N images")
+    parser.add_argument("--tilt", default=None,
+                        help="tilt-pair .mrcs image stack")
+    parser.add_argument("--tilt-deg", type=float, default=45.0,
+                        help="right-handed x-axis tilt offset (deg)")
+    a = parser.parse_args(argv)
+    import numpy as np
+
+    from cet_pick_tpu_torch.io.mrc import read_mrc, write_mrc
+    from cet_pick_tpu_torch.utils.reconstruct import backproject, load_poses
+
+    stack = np.asarray(read_mrc(a.particles), np.float32)
+    if stack.ndim == 2:
+        stack = stack[None]
+    tilt_stack = None
+    if a.tilt is not None:
+        tilt_stack = np.asarray(read_mrc(a.tilt), np.float32)
+        if tilt_stack.ndim == 2:
+            tilt_stack = tilt_stack[None]
+    if a.invert_data:
+        stack = -stack
+        if tilt_stack is not None:
+            tilt_stack = -tilt_stack
+    n = min(a.first, len(stack))
+    # fraction-of-box translations scale by the symmetrized lattice size
+    # D = box + 1 (backproject_voxel.py:89)
+    rots, trans = load_poses(a.poses, len(stack), stack.shape[-1] + 1)
+    t0 = time.perf_counter()
+    vol = backproject(stack[:n], rots[:n],
+                      trans=None if trans is None else trans[:n],
+                      tilt_images=None if tilt_stack is None
+                      else tilt_stack[:n],
+                      tilt_deg=a.tilt_deg, device=a.device)
+    wall = time.perf_counter() - t0
+    write_mrc(a.o, vol)
+    print(f"backprojected {n} images -> {a.o} ({wall:.3f}s)")
+
+
 def cmd_merge(argv):
     """Per-tomogram pick txts -> one table (cet_pick_tpu/__main__.py:
     662-669)."""
@@ -803,7 +1041,11 @@ def cmd_doctor(argv):
 COMMANDS = {"train": cmd_train, "test": cmd_test,
             "classify-test": cmd_classify_test, "watch": cmd_watch,
             "explore": cmd_explore, "moco": cmd_moco,
-            "classify": cmd_classify,
+            "classify": cmd_classify, "fewshot": cmd_fewshot,
+            "denoise": cmd_denoise,
+            "extract-spectrum": cmd_extract_spectrum,
+            "match-spectrum": cmd_match_spectrum,
+            "backproject": cmd_backproject,
             "embed": cmd_embed, "scan": cmd_scan,
             "scan-finetune": cmd_scan_finetune, "plot2d": cmd_plot2d,
             "phoenix": cmd_phoenix, "to-coords": cmd_to_coords,

@@ -68,6 +68,26 @@ def _free_device_bytes(device) -> int:
             - torch.cuda.memory_allocated(device))
 
 
+def check_untiled_fits(model, shape, device, xy_budget=None, views=1):
+    """Raise ``MemoryError`` where one untiled forward of a (D, H, W)
+    volume would not fit the envelope: ``views`` x D x H x W x the model's
+    bytes per voxel against ``MEMORY_FRACTION`` of the device's free
+    memory, or ``xy_budget`` bytes (the CPU has no limit)."""
+    if xy_budget is None:
+        xy_budget = (TiledHeatmapInference.MEMORY_FRACTION
+                     * _free_device_bytes(device)
+                     if torch.device(device).type == "cuda" else math.inf)
+    d, h, w = (int(s) for s in shape[-3:])
+    need = views * d * h * w * float(getattr(
+        model, "bytes_per_voxel", TiledHeatmapInference.BYTES_PER_VOXEL))
+    if need > xy_budget:
+        raise MemoryError(
+            f"a {d}x{h}x{w} volume needs about {need / 2**30:.1f} GiB for "
+            f"this model's untiled forward, over its budget of "
+            f"{xy_budget / 2**30:.1f} GiB; the forward is not tiled: crop "
+            f"the volume")
+
+
 class TiledHeatmapInference:
     """z-tiled (and optionally xy-tiled) `hm` forward for one model."""
 
@@ -225,15 +245,10 @@ class TiledHeatmapInference:
         smaller tile wins per axis; an explicit 0 opts that axis out. An
         untiled detector raises where the envelope would tile."""
         if self.untiled:
-            views = 4 if self.tta else 1
-            need = views * n_windows * win_d * h * w * self.bytes_per_voxel
-            if need > self.xy_budget:
-                raise MemoryError(
-                    f"a {win_d}x{h}x{w} volume needs about {need / 2**30:.1f} "
-                    f"GiB for this detector's untiled forward, over its "
-                    f"budget of {self.xy_budget / 2**30:.1f} GiB; the 3D "
-                    f"detectors are not tiled (GroupNorm spans the volume): "
-                    f"crop the volume")
+            # the 3D detectors are not tiled: GroupNorm spans the volume
+            check_untiled_fits(self.model, (n_windows * win_d, h, w),
+                               self.device, self.xy_budget,
+                               views=4 if self.tta else 1)
             return None
         auto = self._auto_xy(n_windows, win_d, h, w)
         if auto is None:

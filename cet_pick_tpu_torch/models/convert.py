@@ -470,3 +470,17 @@ def normalize_state_dict(raw) -> Dict[str, torch.Tensor]:
         sd.setdefault(k[: -len("running_mean")] + "num_batches_tracked",
                       torch.tensor(0, dtype=torch.int64))
     return sd
+
+
+def denoise_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX ``NoiseNetwork`` parameters -> the port's state dict
+    (``models/denoise.py``): flax's module names, each ``ShiftConv_<i>``'s
+    ``Conv_0`` kernel (kh, kw, in, out) as (out, in, kh, kw)."""
+    sd = {}
+    for name, sub in params.items():
+        conv = sub["Conv_0"]
+        sd[f"{name}.weight"] = torch.from_numpy(np.array(
+            np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1)))
+        sd[f"{name}.bias"] = torch.from_numpy(
+            np.asarray(conv["bias"], np.float32).copy())
+    return sd

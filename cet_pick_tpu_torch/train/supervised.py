@@ -30,7 +30,10 @@ import torch
 from cet_pick_tpu_torch.ops.gram import gram_supcon_v2_stats
 from cet_pick_tpu_torch.ops.nms import sigmoid_clamped
 from cet_pick_tpu_torch.train import losses as L
-from cet_pick_tpu_torch.train.fewshot import partial_sup_loss
+from cet_pick_tpu_torch.train.fewshot import (
+    partial_sup_loss,
+    top_k_stable,
+)
 from cet_pick_tpu_torch.train.refine import (
     optimizer_step,
     prepare_refine,
@@ -66,13 +69,6 @@ def supcon_v2_loss(feats, hm, temp=0.07, thresh=0.5):
     return loss_pos + loss_neg
 
 
-def _top_k_stable(score, k):
-    """``lax.top_k`` along the last axis: the k largest, ties broken by the
-    lower index (``torch.topk`` promises no order among ties)."""
-    values, idx = torch.sort(score, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
-
-
 def tomo_site_supcon(feats, hm, ties=None, generator=None, temp=0.2,
                      thresh=0.5):
     """Gathered-site supcon for the tomo task (supervised.py:88-120), per
@@ -96,8 +92,8 @@ def tomo_site_supcon(feats, hm, ties=None, generator=None, temp=0.2,
     else:
         tie_p, tie_n = ties
     zero = torch.zeros((), dtype=hm.dtype, device=hm.device)
-    pv, pi = _top_k_stable(torch.where(pos, 1.0 + tie_p, zero), k)
-    nv, ni = _top_k_stable(torch.where(neg, 1.0 + tie_n, zero), k)
+    pv, pi = top_k_stable(torch.where(pos, 1.0 + tie_p, zero), k)
+    nv, ni = top_k_stable(torch.where(neg, 1.0 + tie_n, zero), k)
     idx = torch.cat([pi, ni], dim=-1)
     f = torch.take_along_dim(feats, idx[..., None], dim=-2)
     f = f / torch.clamp(torch.linalg.vector_norm(f, dim=-1, keepdim=True),

@@ -179,6 +179,46 @@ The slice of exploration's 3D-subvolume mode and MoCo adds:
 In each, the four kernels' launch counts read 0; a ``walls`` line gives
 every exploration phase's wall.
 
+The slice of few-shot picking, blind-spot denoising and the cryoDRGN tools
+adds, after ``vol_migration`` (walls in the same ``walls`` line):
+
+- fewshot    ``fewshot`` at its defaults (unet_4, 10x128x128 crops, batch
+             1, contrastive, 3 clusters, lr 1e-3) on the two explore recs,
+             planted class 0 as label 1 and class 1 as label 2, FS_EPOCHS
+             epochs of FS_ITERS steps, then ``--write_picks``: losses
+             finite, ``cluster_centers.npy`` (3, 16), ``model_last.pth``
+             read back strict, and the z-tap launches equal to the eval
+             forwards' (the cold centres' forward and one whole-volume
+             similarity a rec, two layers each: 6); samples/s, step ms,
+             the similarity forward's ms and peak bytes, the class-1 minus
+             class-2 mean similarity at the planted sites and the picks'
+             F1 against the class-1 centres (reported). The ``kernels``
+             line's unet z-tap entry gives these as ``launches_in_fewshot``
+- fewshot_step one fs step on the card and on the CPU from the fewshot
+             run's state, a batch and its centres: loss and terms 1e-5,
+             centres 1e-5, assignments >= 99.9% equal, gradients within
+             1e-2 plus twice the CPU f32's own distance from float64 of
+             each tensor's largest, parameters 1e-5 of max(1, largest)
+             where the float64 gradient is not near 0 (``step_errors``);
+             the same from the seeded weights with the Lloyd loop in f32
+             and in float64, reported
+- denoise    ``denoise`` at its defaults (crop 128, batch 8, lr 1e-3,
+             exclude 200) for DENOISE_ITERS iterations on one 256x512x512
+             rec of blobs under noise, ``--write_denoised``, then
+             ``--load_model`` apply-only from the ``.pth``: losses finite,
+             the last noise_std in (0, 16], the output's shape and
+             finiteness, the apply-only MRC bit-equal; one step card vs
+             CPU with and without the clip triggering; step ms,
+             samples/s, busy share, the volume's seconds and TFLOP/s,
+             PSNR in and out against the noise-free volume
+- spectrum   ``extract-spectrum`` of a main-path volume, ``match-spectrum``
+             of the other to it (hard, smoothed): card vs CPU within 1e-5
+             (relative per bin; of the largest voxel); seconds a volume
+- backproject a 128^3 volume projected by the port's ``Projector`` at
+             2,048 random poses with shifts, ``backproject --first 2000``:
+             correlation with the volume > 0.6, card vs CPU on 400 images
+             within 1e-4 of the largest voxel; images/s
+
 The model phase also runs ``res3d_2`` and ``res3dref_18``: the card's
 untiled forward against the CPU's, and one untiled forward of a
 256x512x512 volume with its device ms and peak memory. The kernels phase
@@ -198,6 +238,10 @@ one tree's training against another's; it runs none of the other phases,
 the exploration ones included. ``--semiclass-seeds 317,1,2`` does the same
 for ``train --task semiclass --pn`` over 10 epochs, with ``classify-test``
 on every other epoch's checkpoint (``semiclass_seeds``).
+``--denoise-runs 2`` trains ``denoise`` as the denoise phase does, twice
+as the card runs it and twice under ``torch.use_deterministic_algorithms``
+(``denoise_runs``), to tell whether where the run ends follows the card's
+unordered sums.
 """
 
 from __future__ import annotations
@@ -2954,6 +2998,682 @@ def phase_freeze(work):
     return rec, launches
 
 
+# few-shot picking, blind-spot denoising and the cryoDRGN tools. fewshot
+# runs at its defaults (unet_4, 10x128x128 crops, batch 1, contrastive, 3
+# clusters, lr 1e-3) on the explore recs, FS_EPOCHS epochs of FS_ITERS
+# steps; its one-step check holds the card to the CPU (tests/
+# test_torch_fewshot.py's bars): the loss and both terms within 1e-5, the
+# centres within 1e-5, the k-means assignments equal on >= 99.9% of the
+# pixels, and the step itself (``step_errors``): each gradient within
+# its bar of its tensor's largest, and each parameter after Adam
+# within 1e-5 of max(1, its tensor's largest) where the CPU's float64
+# gradient lies beyond ADAM_SIGN_RES of that tensor's largest.
+FS_EPOCHS = 3
+FS_ITERS = 40
+FS_TOL = 1e-5
+FS_AGREE = 0.999
+# gradients, card f32 against CPU f32, of each tensor's largest: within
+# STEP_GRAD_TOL plus twice the step's largest distance of the CPU's own f32
+# gradients from float64. In trained fs steps the cosine-softmax at temp
+# 0.07 saturates and f32 rounds the gradient on either device: the CPU's
+# f32 lay 9.5e-5 to 7.2e-3 from float64, and cuDNN's f32 algorithms up to
+# 5 times as far (4.8e-3 against the CPU's 9.9e-4; at the cuda tests'
+# 32x32 shapes 2.7e-4 against 8e-6); the denoise steps 1.2e-4 to 1.6e-4
+# on both (NVIDIA H100 80GB HBM3; PERF.md section 6). A wrong backward pass
+# is off by more than a hundredth of a tensor's largest; the exploration
+# steps' bar is a tenth (EXPLORE_GRAD_TOL)
+STEP_GRAD_TOL = 1e-2
+# Adam's first step moves a weight by lr g / (|g| + eps), about lr times
+# the gradient's sign: where the float64 gradient lies within this share of
+# its tensor's largest (four times the card's worst distance from float64
+# in a gated step, 4.8e-3), rounding may flip the sign, and those weights
+# are held by the gradient bar alone; elsewhere the two steps share the
+# sign and differ by at most lr eps |dg| / g^2
+ADAM_SIGN_RES = 2e-2
+# a tensor whose float64 gradient's largest is below this share of the
+# step's largest is zero but for rounding (a bias a BatchNorm follows; the
+# sigma net's layers under its zero-initialized output): its Adam step is
+# lr times the sign of rounding, on any device
+ZERO_GRAD = 1e-9
+FS_SEP_BAR = 0.1  # tests/test_fewshot.py:138-185 (reported, not gated)
+# denoise at its defaults (crop 128, batch 8, lr 1e-3, exclude 200) on one
+# 256x512x512 rec with planted blobs under gaussian noise
+DENOISE_ITERS = 200
+DENOISE_NOISE = 0.8
+DENOISE_STEP_BATCH = 2
+DENOISE_TIMED_STEPS = 10
+SPECTRUM_TOL = 1e-5
+# backproject: a 128^3 volume (a typical cryoDRGN box) projected at
+# BACKPROJECT_IMAGES random poses with shifts; the CPU reference takes the
+# first BACKPROJECT_CPU_IMAGES
+BACKPROJECT_BOX = 128
+BACKPROJECT_IMAGES = 2048
+BACKPROJECT_FIRST = 2000
+BACKPROJECT_CPU_IMAGES = 400
+BACKPROJECT_TOL = 1e-4
+BACKPROJECT_CORR_GATE = 0.6  # tests/test_reconstruct.py:113-127
+
+
+def write_fewshot_data(work, planted):
+    """The fs image list of the explore recs (xzy on disk) and their
+    coordinate table, in the order the recs are written: planted class 0
+    (small, dense) is label 1, class 1 label 2."""
+    with open(os.path.join(work, "fs_images.txt"), "w") as fh:
+        fh.write("image_name\trec_path\n" + "".join(
+            f"{n}\t{work}/{n}.rec\n" for n in planted))
+    with open(os.path.join(work, "fs_coords.txt"), "w") as fh:
+        fh.write("image_name\tx_coord\ty_coord\tz_coord\tlabel\n" + "".join(
+            f"{n}\t{x}\t{y}\t{z}\t{cls + 1}\n"
+            for n, cs in planted.items() for x, y, z, cls in cs))
+
+
+def step_errors(card, cpu, cpu64):
+    """The worst errors of one optimizer step, card f32 against CPU f32,
+    each run a dict with ``grads`` (the gradients the optimizer saw) and
+    ``state`` (the state dict after the step); ``cpu64``, the same step in
+    float64 on the CPU, only sorts the elements (never the card's data):
+    the gradients of each tensor's largest (``grad_rel``; beside it the
+    CPU's f32 and the card's against float64), held within ``grad_bar``:
+    STEP_GRAD_TOL plus twice the CPU's worst, the parameters after the
+    step of max(1, the tensor's largest) where the float64 gradient lies
+    beyond ADAM_SIGN_RES of its tensor's largest (``param_rel``; the
+    largest difference elsewhere is reported, ``near0_max_abs``), and the
+    BN running statistics of each tensor's largest. A tensor whose float64
+    gradient is zero but for rounding (ZERO_GRAD) is listed, and its
+    gradient held of the step's largest (``zero_grad_rel``), its Adam step
+    (lr times the sign of rounding) not at all."""
+    def max0(t):
+        return float(t.max()) if t.numel() else 0.0
+
+    g64s = cpu64["grads"]
+    top = max(float(g.abs().max()) for g in g64s.values())
+    out = {"grad_rel": 0.0, "grad_rel_cpu_vs_f64": 0.0,
+           "grad_rel_card_vs_f64": 0.0, "param_rel": 0.0,
+           "near0_max_abs": 0.0, "near0": 0, "bn_rel": 0.0,
+           "zero_grad_tensors": [], "zero_grad_rel": 0.0}
+    for k, want in cpu["state"].items():
+        if not want.is_floating_point():
+            continue
+        got = card["state"][k]
+        if k in g64s:
+            g64 = g64s[k]
+            scale = float(g64.abs().max())
+            if scale <= ZERO_GRAD * top:
+                out["zero_grad_tensors"].append(k)
+                out["zero_grad_rel"] = max(out["zero_grad_rel"], _rel_err(
+                    card["grads"][k], cpu["grads"][k], top))
+                continue
+            for key, a, b in (("grad_rel", card["grads"][k], cpu["grads"][k]),
+                              ("grad_rel_cpu_vs_f64", cpu["grads"][k], g64),
+                              ("grad_rel_card_vs_f64", card["grads"][k],
+                               g64)):
+                out[key] = max(out[key], _rel_err(a, b))
+            near0 = g64.abs() <= ADAM_SIGN_RES * scale
+            d = (got - want).abs()
+            out["param_rel"] = max(out["param_rel"], max0(
+                d[~near0]) / max(1.0, float(want.abs().max())))
+            out["near0_max_abs"] = max(out["near0_max_abs"], max0(d[near0]))
+            out["near0"] += int(near0.sum())
+        elif "running" in k:
+            out["bn_rel"] = max(out["bn_rel"], _rel_err(got, want))
+    out["grad_bar"] = STEP_GRAD_TOL + 2 * out["grad_rel_cpu_vs_f64"]
+    out["ok"] = (out["grad_rel"] <= out["grad_bar"]
+                 and out["zero_grad_rel"] <= STEP_GRAD_TOL
+                 and out["param_rel"] <= FS_TOL and out["bn_rel"] <= FS_TOL)
+    return out
+
+
+def fewshot_step_run(cfg, sd0, batch, centers, device, dtype):
+    """One fs step (fewshot_loss, backward, Adam) from the state dict
+    ``sd0`` on ``device`` in ``dtype``: metrics, centres, assignments,
+    gradients and the state after it, on the CPU in float64."""
+    from cet_pick_tpu_torch.train.fewshot import fewshot_loss
+    from cet_pick_tpu_torch.train.state import TrainState
+
+    model = create_detector(cfg)
+    model.load_state_dict(sd0)
+    model.to(device, dtype).train()
+    state = TrainState(model, cfg.lr)
+    tb = {k: torch.from_numpy(batch[k]).to(device, dtype)
+          for k in ("input", "lb_map")}
+    loss, cents, assign, m = fewshot_loss(model, tb, centers.to(device, dtype),
+                                          cfg)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = {n: p.grad.detach().cpu().double()
+             for n, p in model.named_parameters()}
+    state.optimizer.step()
+    return {"metrics": {k: float(v.detach()) for k, v in m.items()},
+            "centers": cents.detach().cpu().double(),
+            "assign": assign.cpu(), "grads": grads,
+            "state": {k: v.detach().cpu().double()
+                      for k, v in model.state_dict().items()}}
+
+
+def phase_fewshot(work, planted):
+    """``fewshot`` at its defaults on the two explore recs, FS_EPOCHS
+    epochs of FS_ITERS steps, then ``--write_picks``. Gates: losses finite,
+    ``cluster_centers.npy`` (3, 16), ``model_last.pth`` read back strict,
+    the z-tap launches equal to the eval forwards' two layers each (the
+    cold centres' forward plus one whole-volume similarity per rec).
+    Reported: samples/s, step ms, the similarity forward's ms and peak
+    bytes, the class-1 minus class-2 mean similarity at the planted sites
+    and the picks' F1 against the class-1 centres."""
+    from cet_pick_tpu_torch.data.fewshot_dataset import FewshotDataset
+    from cet_pick_tpu_torch.models.convert import load_checkpoint
+    from cet_pick_tpu_torch.train.fewshot import fewshot_similarity
+
+    write_fewshot_data(work, planted)
+    flags = ["--data_dir", work, "--train_img_txt", "fs_images.txt",
+             "--train_coord_txt", "fs_coords.txt", "--order", "xzy",
+             "--root_dir", work]
+    lines, launches, wall = run_cli(
+        ["fewshot", *flags, "--exp_id", "fs", "--num_epochs",
+         str(FS_EPOCHS), "--num_iters", str(FS_ITERS), "--write_picks"])
+    steps = {}
+    means, rates = _epoch_lines(lines, steps)
+    cfg = Config(task="fs", arch="unet_4", order="xzy", data_dir=work,
+                 train_img_txt="fs_images.txt",
+                 train_coord_txt="fs_coords.txt", root_dir=work,
+                 exp_id="fs").finalize()
+    centers = np.load(os.path.join(cfg.save_dir, "cluster_centers.npy"))
+    model = create_detector(cfg)
+    model.load_state_dict(load_checkpoint(
+        os.path.join(cfg.save_dir, "model_last.pth")), strict=True)
+    model.to(DEVICE)
+    ds = FewshotDataset(cfg, "train")
+    sims, sim_ms, peak = {}, None, None
+    for i, name in enumerate(ds.names):
+        vol = torch.from_numpy(np.asarray(ds.tomos[i])).to(DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = _event()
+        sim = fewshot_similarity(model, centers, vol)
+        t1 = _event()
+        torch.cuda.synchronize()
+        if sim_ms is None:
+            sim_ms = t0.elapsed_time(t1)
+            peak = torch.cuda.max_memory_allocated() - base
+        sims[name] = sim.cpu().numpy()
+        del vol, sim
+    at = {c: [float(sims[n][z, y // 2, x // 2]) for n, cs in planted.items()
+              for x, y, z, cls in cs if cls == c] for c in (0, 1)}
+    sep = float(np.mean(at[0]) - np.mean(at[1]))
+    targets = {k: [] for k in ("image_name", "x_coord", "y_coord",
+                               "z_coord")}
+    preds = {k: [] for k in (*targets, "score")}
+    for name, cs in planted.items():
+        for x, y, z, cls in cs:
+            if cls == 0:
+                for k, v in zip(targets, (name, x, y, z)):
+                    targets[k].append(v)
+        with open(os.path.join(cfg.out_path, f"{name}.txt")) as f:
+            rows = [line.split("\t") for line in f.read().splitlines()]
+        for i, (x, z, y) in enumerate(rows):
+            for k, v in zip(preds, (name, int(x), int(y), int(z),
+                                    float(len(rows) - i))):
+                preds[k].append(v)
+    f1 = evaluate_detections(targets, preds, radius=MATCH_RADIUS)["best_f1"]
+    want_ztap = 2 * (1 + len(ds.names))
+    finite = bool(means) and all(np.isfinite(v) for m in means.values()
+                                 for v in m.values())
+    rate = float(np.mean(list(rates.values()))) if rates else None
+    rec = {"phase": "fewshot", "cli_wall_s": wall, "epoch_means": means,
+           "steps": steps, "samples_per_s": rates,
+           "step_ms": 1e3 / rate if rate else None,
+           "similarity_forward_ms": sim_ms,
+           "similarity_peak_bytes": peak, "volume": list(VOLUME),
+           "centers_shape": list(centers.shape),
+           "mean_similarity_class1_minus_class2": sep,
+           "separation_bar_reported": FS_SEP_BAR,
+           "picks": len(preds["score"]), "pick_f1_class1": f1,
+           "launches": launches, "ztap_launches_expected": want_ztap}
+    emit(rec)
+    if not finite or len(means) != FS_EPOCHS:
+        raise RuntimeError(f"fewshot: losses {means}")
+    if centers.shape != (3, 16):
+        raise RuntimeError(f"fewshot: cluster_centers {centers.shape}")
+    if launches["ztap_dilated_conv"] != want_ztap or not want_ztap:
+        raise RuntimeError(f"fewshot: {launches['ztap_dilated_conv']} z-tap "
+                           f"launches, {want_ztap} expected")
+    return rec, ds
+
+
+@contextlib.contextmanager
+def lloyd_float64():
+    """The fs step's warm Lloyd loop in float64 (the f32 features and
+    centres cast up, the centres cast back), as ``ops/kmeans`` runs
+    k-means."""
+    from cet_pick_tpu_torch.train import fewshot as fs
+
+    warm = fs.constrained_kmeans_warm
+
+    def warm64(emb, seeds, init, max_iter=fs.LLOYD_ITERS):
+        cents, assign = warm(emb.double(), seeds, init.double(), max_iter)
+        return cents.to(emb.dtype), assign
+
+    fs.constrained_kmeans_warm = warm64
+    try:
+        yield
+    finally:
+        fs.constrained_kmeans_warm = warm
+
+
+def fewshot_step_check(cfg, sd0, batch, centers, cpu64=None, lloyd64=False):
+    """One fs step from ``sd0`` and ``centers`` on the card and on the CPU
+    (with ``lloyd64``, both with the Lloyd loop in float64), and in float64
+    on the CPU (``cpu64``, where given, is that run): the errors, whether
+    they hold the bars, and the float64 run."""
+    with lloyd_float64() if lloyd64 else contextlib.nullcontext():
+        card = fewshot_step_run(cfg, sd0, batch, centers, DEVICE,
+                                torch.float32)
+        cpu = fewshot_step_run(cfg, sd0, batch, centers, "cpu",
+                               torch.float32)
+    if cpu64 is None:
+        cpu64 = fewshot_step_run(cfg, sd0, batch, centers, "cpu",
+                                 torch.float64)
+    errs = step_errors(card, cpu, cpu64)
+    rec = {"lloyd": "float64" if lloyd64 else "float32",
+           "metrics_card": card["metrics"], "metrics_cpu": cpu["metrics"],
+           "metric_err": max(abs(card["metrics"][k] - cpu["metrics"][k])
+                             / max(1.0, abs(cpu["metrics"][k]))
+                             for k in cpu["metrics"]),
+           "centers_err": float((card["centers"] - cpu["centers"]).abs()
+                                .max()),
+           "assign_agreement": float((card["assign"] == cpu["assign"])
+                                     .double().mean()),
+           "assign_differ": int((card["assign"] != cpu["assign"]).sum()),
+           "pixels": int(card["assign"].numel()), **errs}
+    rec["ok"] = bool(errs["ok"] and rec["metric_err"] <= FS_TOL
+                     and rec["centers_err"] <= FS_TOL
+                     and rec["assign_agreement"] >= FS_AGREE)
+    return rec, cpu64
+
+
+def phase_fewshot_step(ds):
+    """One fs step at the defaults (unet_4, a 10x128x128 crop) on the card
+    and on the CPU from one state, batch and centres: gated from the
+    ``fewshot`` run's ``model_last.pth`` and ``cluster_centers.npy``, and
+    reported (not gated) from the seeded initial weights with their cold
+    centres, where the prototypes lie close together and f32 rounding
+    flips near-tied assignments, with the Lloyd loop in f32 (as JAX runs
+    it) and in float64."""
+    from cet_pick_tpu_torch.models.convert import load_checkpoint
+    from cet_pick_tpu_torch.train.fewshot import init_fewshot_centers
+
+    cfg = ds.config
+    batch = ds.sample_batch(np.random.default_rng(3), range(1))
+    t0 = time.perf_counter()
+    trained, _ = fewshot_step_check(
+        cfg, load_checkpoint(os.path.join(cfg.save_dir, "model_last.pth")),
+        batch, torch.from_numpy(np.load(os.path.join(
+            cfg.save_dir, "cluster_centers.npy"))))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        sd0 = create_detector(cfg).state_dict()
+    model = create_detector(cfg)
+    model.load_state_dict(sd0)
+    model.to(DEVICE)
+    centers = init_fewshot_centers(model, {
+        k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}, 3).cpu()
+    seeded, cpu64 = fewshot_step_check(cfg, sd0, batch, centers)
+    seeded64, _ = fewshot_step_check(cfg, sd0, batch, centers, cpu64,
+                                     lloyd64=True)
+    rec = {"phase": "fewshot_step", "trained": trained,
+           "seeded_init_reported": seeded,
+           "seeded_init_lloyd_float64_reported": seeded64,
+           "bars": {"metrics": FS_TOL, "centers": FS_TOL, "assign": FS_AGREE,
+                    "params": FS_TOL,
+                    "grads": "STEP_GRAD_TOL + 2 grad_rel_cpu_vs_f64"},
+           "wall_s": time.perf_counter() - t0}
+    emit(rec)
+    if not trained["ok"]:
+        raise RuntimeError(f"fewshot_step: {trained}")
+    return rec
+
+
+def write_denoise_data(work):
+    """One 256x512x512 rec: dark blobs (the main path's) under gaussian
+    noise of std DENOISE_NOISE. Returns the noise-free volume."""
+    rng = np.random.default_rng(11)
+    clean = np.zeros(VOLUME, np.float32)
+    zz, yy, xx = np.mgrid[-8:9, -8:9, -8:9]
+    blob = (2.5 * np.exp(-(zz ** 2 / 8.0 + yy ** 2 / 18.0 + xx ** 2 / 18.0))
+            ).astype(np.float32)
+    for _ in range(400):
+        z, y, x = (int(rng.integers(16, s - 16)) for s in VOLUME)
+        clean[z - 8:z + 9, y - 8:y + 9, x - 8:x + 9] -= blob
+    noisy = clean + DENOISE_NOISE * rng.standard_normal(VOLUME,
+                                                        dtype=np.float32)
+    write_mrc(os.path.join(work, "dn.rec"), noisy)
+    with open(os.path.join(work, "dn_images.txt"), "w") as fh:
+        fh.write(f"image_name\trec_path\ndn\t{work}/dn.rec\n")
+    return clean, noisy
+
+
+def loader_map(noisy):
+    """The map the loader applies to ``noisy`` (standardized by its own
+    statistics, clipped to [-2.5, 2], scaled to [0, 1]), as a function."""
+    mean = float(noisy.mean(dtype=np.float64))
+    std = float(noisy.std(dtype=np.float64))
+    return lambda v: (np.clip((v - mean) / std, -2.5, 2.0) + 2.5) / 4.5
+
+
+def _psnr(x, ref):
+    mse = np.mean((x - ref) ** 2, dtype=np.float64)
+    return float(10 * np.log10(1.0 / mse))
+
+
+def _denoise_nets(state0, device, dtype):
+    from cet_pick_tpu_torch.train.denoise import create_denoise_models
+
+    models = create_denoise_models()
+    for k, m in models.items():
+        m.load_state_dict(state0[k])
+        m.to(device, dtype)
+    return models
+
+
+def denoise_grad_norm(state0, noisy):
+    """The global norm of both nets' gradients before the clip (on the
+    card)."""
+    from cet_pick_tpu_torch.train.denoise import denoise_loss
+
+    models = _denoise_nets(state0, DEVICE, torch.float32)
+    loss, _ = denoise_loss(models, torch.from_numpy(noisy).to(DEVICE))
+    grads = torch.autograd.grad(
+        loss, [p for m in models.values() for p in m.parameters()])
+    return math.sqrt(sum(float((g * g).sum()) for g in grads))
+
+
+def denoise_step_run(state0, noisy, device, dtype, lr=1e-3):
+    """One denoise step (loss, backward, the global-norm clip, Adam) from
+    the nets' state dicts ``state0`` on ``device`` in ``dtype``: metrics,
+    the clipped gradients Adam sees and the state after the step."""
+    from cet_pick_tpu_torch.train.denoise import (
+        DenoiseState,
+        denoise_train_step,
+    )
+
+    models = _denoise_nets(state0, device, dtype)
+    state = DenoiseState(models, lr)
+    grads = {}
+    adam_step = state.optimizer.step
+
+    def keep_grads(*a, **k):
+        grads.update((f"{n}.{pn}", p.grad.detach().cpu().double())
+                     for n, m in models.items()
+                     for pn, p in m.named_parameters())
+        return adam_step(*a, **k)
+
+    state.optimizer.step = keep_grads
+    m = denoise_train_step(
+        state, torch.from_numpy(noisy).to(device, dtype), lr)
+    return {"metrics": {k: float(v) for k, v in m.items()}, "grads": grads,
+            "state": {f"{n}.{k}": v.detach().cpu().double()
+                      for n, mod in models.items()
+                      for k, v in mod.state_dict().items()}}
+
+
+def phase_denoise(work):
+    """``denoise`` at its defaults for DENOISE_ITERS iterations on one
+    256x512x512 rec, ``--write_denoised``, then ``--load_model``
+    apply-only from the written ``.pth``. Gates: losses finite, the last
+    noise_std in (0, 16], the output's shape the input's and finite, the
+    apply-only MRC bit-equal to the trained run's; one step card against
+    CPU (loss within 1e-5, the clipped gradients and the parameters after
+    Adam as ``step_errors``) with and without the clip triggering.
+    Reported: step ms, samples/s, busy share, the whole-volume denoise's
+    seconds and TFLOP/s, PSNR of the input and the output
+    against the noise-free volume (both mapped as the loader maps the
+    input: standardized by the noisy volume's statistics, clipped to
+    [-2.5, 2], scaled to [0, 1])."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cet_pick_tpu_torch.train.denoise import (
+        DenoiseDataset,
+        create_denoise_state,
+        denoise_volume,
+        denoise_train_step,
+    )
+
+    clean, noisy = write_denoise_data(work)
+    flags = ["denoise", "--data_dir", work, "--train_img_txt",
+             "dn_images.txt", "--order", "zxy", "--root_dir", work,
+             "--write_denoised"]
+    lines, launches, wall = run_cli(flags + ["--exp_id", "dn", "--num_iters",
+                                             str(DENOISE_ITERS)])
+    hist = _log_metrics(lines, "iter ")
+    save = os.path.join(work, "exp", "denoise", "dn")
+    ckpt = os.path.join(save, "model_last.pth")
+    out = read_mrc(os.path.join(save, "dn_denoised.mrc"))
+    lines2, launches2, wall2 = run_cli(flags + ["--exp_id", "dn_apply",
+                                                "--load_model", ckpt])
+    again = read_mrc(os.path.join(work, "exp", "denoise", "dn_apply",
+                                  "dn_denoised.mrc"))
+    apply_s = [float(m.group(1)) for ln in lines2
+               for m in [re.search(r"\(([0-9.]+)s\)$", ln)] if m]
+    mapped = loader_map(noisy)
+    ref = mapped(clean)
+    psnr_in, psnr_out = _psnr(mapped(noisy), ref), _psnr(out, ref)
+    del clean
+
+    # step time, rate and busy share at the defaults (batch 8, crop 128)
+    cfg = Config(task="denoise", lr=1e-3, batch_size=8).finalize()
+    state = create_denoise_state(cfg, device=DEVICE)
+    # the seeded nets, for the card-vs-CPU steps below
+    state0 = {k: {n: v.detach().cpu().clone() for n, v in
+                  m.state_dict().items()} for k, m in state.models.items()}
+    ds = DenoiseDataset({"dn": mapped(noisy).astype(np.float32)}, crop=128,
+                        exclude=200)
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(ds.sample_batch(rng, 8)).to(DEVICE)
+               for _ in range(3 + 2 * DENOISE_TIMED_STEPS)]
+    for b in batches[:3]:
+        denoise_train_step(state, b, 1e-4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[3:3 + DENOISE_TIMED_STEPS]:
+        denoise_train_step(state, b, 1e-4)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / DENOISE_TIMED_STEPS
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for b in batches[3 + DENOISE_TIMED_STEPS:]:
+            denoise_train_step(state, b, 1e-4)
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation) / 1e3 / DENOISE_TIMED_STEPS
+    # FLOP of one slice's posterior-mean forward at 512x512 (convs scale
+    # with the pixel count)
+    with FlopCounterMode(display=False) as fc:
+        with torch.no_grad():
+            denoise_volume(state, np.zeros((1, 64, 64), np.float32), 1)
+    vol_flop = fc.get_total_flops() / (64 * 64) * np.prod(VOLUME)
+    del state, batches
+    x = ds.sample_batch(np.random.default_rng(1), DENOISE_STEP_BATCH)
+    # the batch scaled so that the clip does not trigger, and so that it
+    # does (the global norm of both nets' gradients below and over 5)
+    norms = {sc: denoise_grad_norm(state0, (x * sc).astype(np.float32))
+             for sc in (0.003, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0)}
+    # scales whose norm lies clearly on one side of the clip's 5
+    below = [sc for sc, g in norms.items() if g < 4.0]
+    over = [sc for sc, g in norms.items() if g >= 6.0]
+    checks = []
+    for case, sc in (("no_clip", below[-1] if below else None),
+                     ("clip", over[0] if over else None)):
+        if sc is None:
+            checks.append({"case": case, "ok": False, "norms": norms})
+            continue
+        xs = (x * sc).astype(np.float32)
+        card = denoise_step_run(state0, xs, DEVICE, torch.float32)
+        cpu = denoise_step_run(state0, xs, "cpu", torch.float32)
+        cpu64 = denoise_step_run(state0, xs, "cpu", torch.float64)
+        errs = step_errors(card, cpu, cpu64)
+        loss_err = abs(card["metrics"]["loss"] - cpu["metrics"]["loss"]) \
+            / max(1.0, abs(cpu["metrics"]["loss"]))
+        checks.append({"case": case, "scale": sc, "grad_norm": norms[sc],
+                       "loss_err": loss_err, **errs,
+                       "ok": errs["ok"] and loss_err <= FS_TOL})
+    finite = bool(hist) and all(np.isfinite(h["loss"]) for h in hist)
+    ns = hist[-1]["noise_std"] if hist else None
+    rec = {"phase": "denoise", "cli_wall_s": wall, "iterations":
+           DENOISE_ITERS, "log": hist, "trained_s": next(
+               (float(m.group(1)) for ln in lines
+                for m in [re.search(r"iterations in ([0-9.]+)s", ln)] if m),
+               None),
+           "apply_cli_wall_s": wall2, "volume_denoise_s": apply_s,
+           "volume_tflop": vol_flop / 1e12,
+           "volume_tflops": vol_flop / 1e12 / apply_s[0] if apply_s else None,
+           "step_ms_unsynchronized": wall_ms,
+           "samples_per_s": 8e3 / wall_ms,
+           "profiled_device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / wall_ms,
+           "psnr_input_db": psnr_in, "psnr_output_db": psnr_out,
+           "apply_bit_equal": again.tobytes() == out.tobytes(),
+           "step_checks": checks, "launches": launches}
+    emit(rec)
+    if not finite or ns is None or not 0 < ns <= 16:
+        raise RuntimeError(f"denoise: log {hist}")
+    if out.shape != tuple(VOLUME) or not np.isfinite(out).all():
+        raise RuntimeError(f"denoise: output {out.shape}")
+    if not rec["apply_bit_equal"]:
+        raise RuntimeError("denoise: --load_model output differs")
+    if not all(c["ok"] for c in checks):
+        raise RuntimeError(f"denoise step {checks}")
+    return rec
+
+
+def phase_spectrum(work):
+    """``extract-spectrum`` of the main path's first rec, then
+    ``match-spectrum`` of the second to it, hard (``-c``) and smoothed
+    (``-c`` with ``-s``). Gates: the spectrum within SPECTRUM_TOL relative
+    per bin of the CPU's (NaN bins alike), each matched volume within
+    SPECTRUM_TOL of its largest voxel from the CPU's. Reported: the
+    commands' walls and each function's seconds per volume on the card."""
+    from cet_pick_tpu_torch.utils.reconstruct import (
+        extract_spectrum,
+        load_spectrum,
+        match_spectrum,
+    )
+
+    a, b = (os.path.join(work, f"{n}.rec") for n in ("tomo_a", "tomo_b"))
+    tsv = os.path.join(work, "spectrum.tsv")
+    _, launches, wall = run_cli(["extract-spectrum", "-i", a, "-o", tsv])
+    spec = load_spectrum(tsv)
+    va, vb = read_mrc(a).astype(np.float32), read_mrc(b).astype(np.float32)
+    want = extract_spectrum(va, device="cpu").astype(np.float64)
+    ok = ~np.isnan(want)
+    spec_err = float(np.max(np.abs(spec[ok] - want[ok]) / np.abs(want[ok])))
+    nan_same = bool(np.array_equal(np.isnan(spec), np.isnan(want)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    extract_spectrum(va, device=DEVICE)
+    extract_s = time.perf_counter() - t0
+    cutoff = len(spec) * 2 // 5
+    recs = []
+    for case, flags, smooth in (("hard", ["-c", str(cutoff)], 0.0),
+                                ("smooth", ["-c", str(cutoff), "-s", "20"],
+                                 20.0)):
+        out = os.path.join(work, f"matched_{case}.mrc")
+        _, _, w = run_cli(["match-spectrum", "-i", b, "-t", tsv, "-o", out,
+                           *flags])
+        got = read_mrc(out)
+        ref = match_spectrum(vb, spec, cutoff=cutoff, smooth=smooth,
+                             device="cpu")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        match_spectrum(vb, spec, cutoff=cutoff, smooth=smooth, device=DEVICE)
+        recs.append({"case": case, "cli_wall_s": w,
+                     "function_s": time.perf_counter() - t0,
+                     "err_of_largest": _rel_err(torch.from_numpy(got),
+                                                torch.from_numpy(ref)),
+                     "finite": bool(np.isfinite(got).all())})
+        del got, ref
+    rec = {"phase": "spectrum", "volume": list(VOLUME), "bins": len(spec),
+           "extract_cli_wall_s": wall, "extract_function_s": extract_s,
+           "spectrum_rel_err": spec_err, "nan_bins_same": nan_same,
+           "match": recs, "bar": SPECTRUM_TOL, "launches": launches}
+    emit(rec)
+    if not (spec_err <= SPECTRUM_TOL and nan_same and all(
+            r["err_of_largest"] <= SPECTRUM_TOL and r["finite"]
+            for r in recs)):
+        raise RuntimeError(f"spectrum: {rec}")
+    return rec
+
+
+def phase_backproject(work):
+    """A 128^3 volume of blobs projected with the port's ``Projector`` at
+    BACKPROJECT_IMAGES random poses, each image shifted by a random
+    translation (what ``--poses``' translations undo), written as .mrcs +
+    .pkl; then ``backproject --first BACKPROJECT_FIRST``. Gates: the
+    reconstruction's correlation with the volume > 0.6, and the card
+    within BACKPROJECT_TOL of the largest voxel from the CPU on the first
+    BACKPROJECT_CPU_IMAGES images. Reported: projections/s, images/s."""
+    from cet_pick_tpu_torch.utils.geometry import Projector, random_so3
+    from cet_pick_tpu_torch.utils.reconstruct import backproject, save_poses
+
+    rng = np.random.default_rng(13)
+    d = BACKPROJECT_BOX
+    vol = np.zeros((d, d, d), np.float32)
+    for _ in range(12):
+        _plant(vol, tuple(int(c) for c in rng.integers(d // 4, 3 * d // 4,
+                                                       3)),
+               -float(rng.uniform(0.5, 1.5)),
+               float(rng.uniform(d / 64, d / 21)))
+    rots = random_so3(BACKPROJECT_IMAGES, rng).astype(np.float32)
+    trans = rng.uniform(-3, 3, (BACKPROJECT_IMAGES, 2)).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images = Projector(vol, device=DEVICE).project(rots)
+    torch.cuda.synchronize()
+    project_s = time.perf_counter() - t0
+    # image(x + t): the content moves by -t, which a +t translation undoes
+    k = torch.fft.fftfreq(d, device=DEVICE)
+    t = torch.from_numpy(trans).to(DEVICE)
+    phase = torch.exp(2j * math.pi * (
+        k[None, None, :] * t[:, 0, None, None]
+        + k[None, :, None] * t[:, 1, None, None]))
+    stack = torch.fft.ifft2(torch.fft.fft2(images) * phase).real.float() \
+        .cpu().numpy()
+    del images, phase
+    particles = os.path.join(work, "particles.mrcs")
+    poses = os.path.join(work, "poses.pkl")
+    write_mrc(particles, stack)
+    save_poses(poses, rots, trans, d=d + 1)
+    out = os.path.join(work, "backprojected.mrc")
+    lines, launches, wall = run_cli(["backproject", "--particles", particles,
+                                     "--poses", poses, "-o", out, "--first",
+                                     str(BACKPROJECT_FIRST)])
+    rec_vol = read_mrc(out)
+    a, b = vol - vol.mean(), rec_vol - rec_vol.mean()
+    corr = float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
+    n, sl = BACKPROJECT_FIRST, slice(0, BACKPROJECT_FIRST)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    backproject(stack[sl], rots[sl], trans=trans[sl], device=DEVICE)
+    bp_s = time.perf_counter() - t0
+    sl = slice(0, BACKPROJECT_CPU_IMAGES)
+    card = backproject(stack[sl], rots[sl], trans=trans[sl], device=DEVICE)
+    cpu = backproject(stack[sl], rots[sl], trans=trans[sl], device="cpu")
+    err = _rel_err(torch.from_numpy(card), torch.from_numpy(cpu))
+    rec = {"phase": "backproject", "box": d, "images": n,
+           "project_s": project_s,
+           "projections_per_s": BACKPROJECT_IMAGES / project_s,
+           "cli_wall_s": wall, "function_s": bp_s, "images_per_s": n / bp_s,
+           "corr_with_volume": corr, "corr_gate": BACKPROJECT_CORR_GATE,
+           "card_vs_cpu_of_largest": err, "cpu_images":
+           BACKPROJECT_CPU_IMAGES, "bar": BACKPROJECT_TOL,
+           "launches": launches}
+    emit(rec)
+    if not (corr > BACKPROJECT_CORR_GATE and err <= BACKPROJECT_TOL):
+        raise RuntimeError(f"backproject: {rec}")
+    return rec
+
+
 def phase_doctor():
     """``doctor`` on the card, in a process of its own (this one has turned
     TF32 off, a fresh one has not): exit 0 and ``healthy`` true."""
@@ -3068,6 +3788,52 @@ def semiclass_seeds(seeds, epochs=10):
                   "f1_by_epoch": f1})
 
 
+def denoise_runs(runs):
+    """``--denoise-runs N``: the ``denoise`` phase's training run (its
+    defaults, DENOISE_ITERS iterations, ``--write_denoised``) on the same
+    rec and seed, N times as the card runs it and N times under
+    ``torch.use_deterministic_algorithms``: one ``denoise_run`` line each
+    (the noise_std log, the last noise_std, PSNR in and out, a hash of the
+    denoised volume, the ops that have no deterministic version), to tell
+    whether the run's end follows the card's unordered sums."""
+    import hashlib
+    import warnings
+
+    with tempfile.TemporaryDirectory() as work:
+        clean, noisy = write_denoise_data(work)
+        mapped = loader_map(noisy)
+        ref = mapped(clean)
+        psnr_in = _psnr(mapped(noisy), ref)
+        del clean, noisy
+        for mode in ("default", "deterministic"):
+            for i in range(runs):
+                torch.use_deterministic_algorithms(mode == "deterministic",
+                                                   warn_only=True)
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    lines, _, wall = run_cli(
+                        ["denoise", "--data_dir", work, "--train_img_txt",
+                         "dn_images.txt", "--order", "zxy", "--root_dir",
+                         work, "--write_denoised", "--exp_id",
+                         f"{mode}{i}", "--num_iters", str(DENOISE_ITERS)])
+                torch.use_deterministic_algorithms(False)
+                hist = _log_metrics(lines, "iter ")
+                out = read_mrc(os.path.join(work, "exp", "denoise",
+                                            f"{mode}{i}", "dn_denoised.mrc"))
+                emit({"phase": "denoise_run", "mode": mode, "run": i,
+                      "noise_std": [h["noise_std"] for h in hist],
+                      "loss": [h["loss"] for h in hist],
+                      "psnr_input_db": psnr_in,
+                      "psnr_output_db": _psnr(out, ref),
+                      "output_sha1": hashlib.sha1(out.tobytes()).hexdigest(),
+                      "nondeterministic_ops": sorted({
+                          str(w.message).split(" does not have")[0]
+                          for w in caught
+                          if "deterministic" in str(w.message)}),
+                      "cli_wall_s": wall})
+                del out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -3079,6 +3845,12 @@ def main(argv=None):
         help="comma-separated seeds: only train semiclass --pn for 10 "
              "epochs and classify-test every other epoch, once per seed "
              "(semiclass_seeds), in place of the smoke run")
+    parser.add_argument(
+        "--denoise-runs", type=int, default=None,
+        help="only train denoise as the denoise phase does, this many times "
+             "as the card runs it and as many under "
+             "torch.use_deterministic_algorithms (denoise_runs), in place "
+             "of the smoke run")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -3088,11 +3860,13 @@ def main(argv=None):
     smi, name = phase_card()
     peaks = peaks_for(name)
     phase_build()
-    if args.train_seeds or args.semiclass_seeds:
+    if args.train_seeds or args.semiclass_seeds or args.denoise_runs:
         if args.train_seeds:
             train_seeds(args.train_seeds)
         if args.semiclass_seeds:
             semiclass_seeds(args.semiclass_seeds)
+        if args.denoise_runs:
+            denoise_runs(args.denoise_runs)
         print(smi)
         return 0
     ztap = phase_kernels(peaks)
@@ -3174,8 +3948,21 @@ def main(argv=None):
             t_phase = time.perf_counter()
             fn(*fn_args)
             walls[label] = time.perf_counter() - t_phase
-    emit({"phase": "walls", "what": "wall s of the exploration phases",
-          "wall_s": walls})
+        # few-shot picking, blind-spot denoising and the cryoDRGN tools
+        t_phase = time.perf_counter()
+        fs_rec, fs_ds = phase_fewshot(work, explore_data)
+        walls["fewshot"] = time.perf_counter() - t_phase
+        for label, fn, fn_args in (
+                ("fewshot_step", phase_fewshot_step, (fs_ds,)),
+                ("denoise", phase_denoise, (work,)),
+                ("spectrum", phase_spectrum, (work,)),
+                ("backproject", phase_backproject, (work,))):
+            t_phase = time.perf_counter()
+            fn(*fn_args)
+            walls[label] = time.perf_counter() - t_phase
+        del fs_ds
+    emit({"phase": "walls", "what": "wall s of the exploration phases and "
+          "of fewshot, denoise and the cryoDRGN tools", "wall_s": walls})
     if CHECK_FAILURES:
         raise RuntimeError(f"failed: {CHECK_FAILURES}")
     kernels = [
@@ -3191,7 +3978,9 @@ def main(argv=None):
                         for r in (cls_pn, cls_ge)],
                     launches_in_semiclass_train=[
                         r["ztap_dilated_conv"]
-                        for r in (sc_launches, sc_pn_launches)]),
+                        for r in (sc_launches, sc_pn_launches)],
+                    launches_in_fewshot=fs_rec["launches"][
+                        "ztap_dilated_conv"]),
         _ztap_entry("ztap_dilated_conv[C=F=128]", ztap["unetw"],
                     unetw_rec["launches"]["ztap_dilated_conv"],
                     unetw_train["ztap_dilated_conv"]),

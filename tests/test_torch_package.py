@@ -44,12 +44,31 @@ def test_imports_every_module_with_jax_blocked():
     assert int(out.stdout.strip()) >= 30  # the train slice's modules too
 
 
+def test_walk_reaches_the_fewshot_denoise_and_cryodrgn_modules():
+    """The blocked-import walk above imports these modules too."""
+    import pkgutil
+
+    import cet_pick_tpu_torch as p
+
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                     p.__name__ + ".")}
+    assert {f"cet_pick_tpu_torch.{m}" for m in (
+        "data.fewshot_dataset", "train.fewshot", "models.denoise",
+        "train.denoise", "utils.geometry", "utils.reconstruct")} <= names
+
+
 def test_no_jax_package_imports():
     banned = re.compile(
-        r"^\s*(from|import)\s+(cet_pick_tpu(?!_torch)\b|jax\b|flax\b|jaxlib\b)",
+        r"^\s*(from|import)\s+(cet_pick_tpu(?!_torch)\b|jax\b|flax\b|jaxlib\b"
+        r"|optax\b|pandas\b|msgpack\b)",
         re.M)
     offenders = []
-    for path in _sources():
+    sources = list(_sources())
+    for new in ("data/fewshot_dataset.py", "train/fewshot.py",
+                "models/denoise.py", "train/denoise.py", "utils/geometry.py",
+                "utils/reconstruct.py"):
+        assert os.path.join(PACKAGE, new) in sources
+    for path in sources:
         with open(path) as f:
             offenders += [f"{path}: {m.group(0).strip()}"
                           for m in banned.finditer(f.read())]
@@ -66,21 +85,23 @@ def test_cuda_device_without_cuda_raises():
 
 @pytest.mark.parametrize("cmd", ["train", "export-torch", "denoise", "fewshot"])
 def test_unported_commands_exit_nonzero(cmd, capsys):
-    """Unported commands, and ``train`` for the tasks other than semi,
-    semi3d, semiclass, tomo and cr; the commands of the port's slices so
-    far are ported."""
+    """Unported commands, ``train`` for the tasks other than semi, semi3d,
+    semiclass, tomo and cr, and ``fewshot`` / ``denoise`` under ``--dtype
+    bfloat16``; the commands of the port's slices so far are ported."""
     for ported in ("classify-test", "explore", "embed", "watch", "classify",
                    "merge", "pr-curve", "remove-golds", "gen-files", "flags",
                    "doctor", "scan", "scan-finetune", "plot2d", "phoenix",
-                   "to-coords", "sublabels", "visualize3d", "moco"):
+                   "to-coords", "sublabels", "visualize3d", "moco",
+                   "fewshot", "denoise", "extract-spectrum",
+                   "match-spectrum", "backproject"):
         assert ported not in NOT_PORTED and ported in COMMANDS
-    assert set(NOT_PORTED) == {"fewshot", "denoise",
-                               "extract-spectrum", "match-spectrum",
-                               "backproject", "export-torch", "import-torch"}
+    assert set(NOT_PORTED) == {"export-torch", "import-torch"}
     if cmd == "train":
         assert cmd not in NOT_PORTED
         for task in ("simsiam", "denoise"):
             assert main([cmd, "--task", task]) == 2
+    elif cmd in ("denoise", "fewshot"):
+        assert main([cmd, "--dtype", "bfloat16", "--device", "cpu"]) == 2
     else:
         assert cmd in NOT_PORTED
         assert main([cmd]) == 2
