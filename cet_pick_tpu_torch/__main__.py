@@ -111,6 +111,12 @@ Ported so far:
                  ``--targets`` at ``-r`` voxels; ``--out`` writes the table
   remove-golds   drop picks within ``--r`` of the ``*_gold3d.txt`` beads
   gen-files      image list (and coordinate table) of a directory of volumes
+  import-torch   a reference ``.pth`` (``--load_model``) -> a JAX checkpoint
+                 directory (``--out``: ``state.msgpack`` + ``opt.json``)
+                 that JAX's and the port's ``--load_model`` / ``--resume``
+                 read
+  export-torch   a JAX checkpoint directory or the port's ``.pth`` (with its
+                 ``opt.json``) -> the reference ``.pth`` (``--out``)
   flags          the flag reference page (stdout, or ``--out``)
   doctor         one JSON health line: devices, and the CUDA kernels built
                  and held against their plain versions (exit 1 when
@@ -121,8 +127,9 @@ Every command that loads weights takes a ``.pth`` or a JAX checkpoint
 directory (``state.msgpack``). ``--device {cuda,cpu}`` picks the device
 (default cuda; asking for cuda without one raises); every command takes
 it, and the host ones (``merge``, ``pr-curve``, ``remove-golds``,
-``gen-files``, ``flags``) compute nothing on a device. Every other command
-of ``python -m cet_pick_tpu`` exits non-zero with "not yet ported".
+``gen-files``, ``flags``, ``import-torch``, ``export-torch``) compute
+nothing on a device. Every command of ``python -m cet_pick_tpu`` is ported;
+``--dtype bfloat16`` is not yet, and exits non-zero.
 """
 
 from __future__ import annotations
@@ -137,8 +144,8 @@ import time
 from cet_pick_tpu_torch.cli.common import add_config_arguments, config_from_args
 from cet_pick_tpu_torch.config import Config
 
-# the JAX package's other commands, in its order (cet_pick_tpu/__main__.py)
-NOT_PORTED = ("export-torch", "import-torch")
+# the JAX package's commands not ported yet (cet_pick_tpu/__main__.py): none
+NOT_PORTED = ()
 
 
 def _parser(prog, defaults):
@@ -150,9 +157,10 @@ def _parser(prog, defaults):
 
 
 def _host_parser(prog, computes=False):
-    """The parser of a command with no Config flags. A host command (no
-    tensor work) takes ``--device`` too, so that every command of the port
-    accepts the flag; with ``computes`` the command runs on it."""
+    """The parser of a command outside ``_parser``'s (its Config flags,
+    if any, are added by the command). A host command (no tensor work)
+    takes ``--device`` too, so that every command of the port accepts the
+    flag; with ``computes`` the command runs on it."""
     parser = argparse.ArgumentParser(prog=prog)
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
@@ -182,6 +190,8 @@ def cmd_train(argv):
     args = _parser("cet_pick_tpu_torch train",
                    Config(task="semi", contrastive=True)).parse_args(argv)
     cfg = config_from_args(args)
+    if _not_float32("cet_pick_tpu_torch train", cfg):
+        return 2
     if cfg.task not in TRAIN_TASKS:
         print(f"train --task {cfg.task!r} is not yet ported to "
               f"cet_pick_tpu_torch (it trains --task "
@@ -980,6 +990,134 @@ def cmd_gen_files(argv):
     print(coord_file)
 
 
+def cmd_import_torch(argv):
+    """Reference ``.pth`` -> JAX checkpoint directory, one shot
+    (cet_pick_tpu/__main__.py:730-790): ``state.msgpack`` (a fresh train
+    state over the converted weights: Adam for the detectors, SGD for the
+    exploration encoders) and ``opt.json``, which JAX's ``--load_model``
+    and ``--resume`` read and so does the port. Families: ``unet_N``
+    (TomoConvUNet), ``res3dref_N`` (TomoRes3DNet), the exploration encoders
+    ``simsiam2d*`` / ``simsiam2d3d*`` / ``simsiamref_N`` / ``moco3dref_N``
+    (reference MoCo wrappers, SCAN models and torchvision ImageNet trunks
+    included: tensors the file lacks keep the port's fresh init)."""
+    parser = _host_parser("cet_pick_tpu_torch import-torch")
+    add_config_arguments(parser, Config(task="semi"))
+    parser.add_argument("--out", required=True,
+                        help="output checkpoint directory")
+    a = parser.parse_args(argv)
+    cfg = config_from_args(a)
+    if not a.load_model.endswith((".pth", ".pt")):
+        print("--load_model must be a reference .pth/.pt file")
+        return 2
+    stem = cfg.arch.split("_")[0]
+    if stem in ("simsiam", "moco3d"):
+        print("the TPU-native 3D-subvolume encoders (simsiam_N/moco3d_N, "
+              "VolTrunk) are not weight-compatible with reference .pth "
+              "files; import those with the reference-structural arches "
+              "--arch simsiamref_18 (simsiam_model.py) or --arch "
+              "moco3dref_18 (moco_encoder_3d.py)")
+        return 2
+    import torch
+
+    from cet_pick_tpu_torch.io.flax_msgpack import write_checkpoint
+    from cet_pick_tpu_torch.models import convert
+    from cet_pick_tpu_torch.train.state import fresh_jax_payload
+
+    if cfg.arch.startswith(("simsiam", "moco")):
+        from cet_pick_tpu_torch.models.simsiam import create_simsiam
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            fresh = create_simsiam(cfg).state_dict()
+        sd = convert.load_simsiam_checkpoint(cfg.load_model, fill=fresh)
+        params, stats = convert.jax_from_simsiam_state_dict(sd)
+        optimizer = "sgd"
+    else:
+        if cfg.arch.startswith("unetw"):
+            raise ValueError(
+                "arch unetw_N is the TPU-first redesign and has no reference "
+                "torch counterpart; load reference .pth checkpoints with the "
+                "parity arch (--arch unet_N) or train unetw from scratch")
+        if cfg.arch.startswith(("res3d_", "p3d")):
+            raise ValueError(
+                f"arch {cfg.arch!r} has no reference .pth layout; import a "
+                f"reference res3d (semi3d) checkpoint with --arch "
+                f"res3dref_18")
+        sd = convert.load_checkpoint(cfg.load_model, arch=cfg.arch)
+        n_blocks = int(cfg.arch.split("_")[1]) if "_" in cfg.arch else 4
+        params, stats = convert.jax_from_state_dict(sd, n_blocks, cfg.heads)
+        optimizer = "adam"
+    write_checkpoint(a.out, fresh_jax_payload(params, stats, cfg.lr,
+                                              optimizer), cfg)
+    print(f"imported {cfg.load_model} -> {a.out} (arch {cfg.arch})")
+
+
+def cmd_export_torch(argv):
+    """A trained checkpoint -> the reference's ``.pth``
+    (cet_pick_tpu/__main__.py:793-907), ``{'epoch', 'state_dict'}``, for
+    nextpyp/cet_pick's torch pipeline: ``unet_N`` (TomoConvUNet),
+    ``res3dref_N`` (TomoRes3DNet), ``simsiam2d*`` / ``simsiam2d3d*`` /
+    ``simsiamref_N`` / ``moco3dref_N`` (a MoCo run's query encoder; SCAN's
+    ClusteringModel with ``best_loss_head``). ``--load_model``: a JAX
+    checkpoint directory (``state.msgpack`` or ``moco_state.msgpack``, and
+    ``opt.json``) or the port's ``.pth`` with its ``opt.json`` beside it;
+    the same weights give the same payload."""
+    parser = _host_parser("cet_pick_tpu_torch export-torch")
+    parser.add_argument(
+        "--load_model", required=True,
+        help="checkpoint directory (state.msgpack + opt.json) or the "
+             "port's .pth (opt.json beside it)")
+    parser.add_argument("--out", required=True, help="output .pth path")
+    a = parser.parse_args(argv)
+    from cet_pick_tpu_torch.io.flax_msgpack import (
+        CHECKPOINT_FILE,
+        MOCO_CHECKPOINT_FILE,
+        is_checkpoint_dir,
+    )
+
+    pth = a.load_model.endswith((".pth", ".pt"))
+    ckpt_dir = os.path.dirname(a.load_model) if pth else a.load_model
+    opt_json = os.path.join(ckpt_dir, "opt.json")
+    if not os.path.exists(opt_json):
+        print(f"no opt.json beside the checkpoint ({opt_json}); "
+              "only checkpoints written by this package can be exported")
+        return 2
+    cfg = Config.load(opt_json)
+    from cet_pick_tpu_torch.models import convert
+
+    family = convert.export_family(cfg.arch)
+    if family is None:
+        print(f"export-torch supports the reference TomoConvUNet (unet_N), "
+              f"patch-exploration (simsiam2d*/simsiam2d3d*), subvolume "
+              f"migration encoders (simsiamref_N/moco3dref_N), and res3dref "
+              f"(TomoRes3DNet) families; checkpoint has arch {cfg.arch!r} "
+              f"(the TPU-native VolTrunk encoders simsiam_N/moco3d_N have "
+              f"no reference structural counterpart — train with the *ref "
+              f"arches if round-tripping to torch matters)")
+        return 2
+    if not pth and not any(is_checkpoint_dir(a.load_model, f) for f in (
+            CHECKPOINT_FILE, MOCO_CHECKPOINT_FILE)):
+        print(f"no state.msgpack / moco_state.msgpack in {a.load_model}")
+        return 2
+    import torch
+
+    sd, loaded = convert.read_any_checkpoint(a.load_model)
+    best_head = None
+    bh = os.path.join(ckpt_dir, "best_head.json")
+    if os.path.exists(bh):
+        # the reference's save_model_scan keeps the winning cluster head
+        # (model.py:264-281); its loader takes cluster_head.{this}
+        with open(bh) as f:
+            best_head = json.load(f)["best_loss_head"]
+    payload = convert.reference_payload(sd, family,
+                                        int(loaded.get("epoch", 0)),
+                                        best_head)
+    os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
+    torch.save(payload, a.out)
+    print(f"{a.out}: {len(payload['state_dict'])} tensors "
+          f"(epoch {payload['epoch']})")
+    return 0
+
 def cmd_flags(argv):
     """The flag reference page (cet_pick_tpu/__main__.py:1032-1045) of the
     port's Config and help, printed or written to ``--out``."""
@@ -1052,6 +1190,8 @@ COMMANDS = {"train": cmd_train, "test": cmd_test,
             "sublabels": cmd_sublabels, "visualize3d": cmd_visualize3d,
             "merge": cmd_merge, "pr-curve": cmd_pr_curve,
             "remove-golds": cmd_remove_golds, "gen-files": cmd_gen_files,
+            "import-torch": cmd_import_torch,
+            "export-torch": cmd_export_torch,
             "flags": cmd_flags, "doctor": cmd_doctor}
 
 

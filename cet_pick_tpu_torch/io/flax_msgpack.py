@@ -1,5 +1,5 @@
-"""Reader of the JAX package's checkpoint files: flax's msgpack format, in
-pure Python (no ``msgpack`` or ``flax`` package).
+"""Reader and writer of the JAX package's checkpoint files: flax's msgpack
+format, in pure Python (no ``msgpack`` or ``flax`` package).
 
 The JAX package writes ``<dir>/state.msgpack`` with
 ``flax.serialization.to_bytes`` (cet_pick_tpu/train/state.py:139-158): a
@@ -17,6 +17,10 @@ msgpack map of ``step``, ``epoch``, ``params``, ``batch_stats`` and
 ``msgpack_restore`` returns what ``flax.serialization.msgpack_restore``
 returns: nested dicts, lists, Python scalars and numpy arrays. bfloat16
 arrays, which numpy has no type for, come back as float32 (exact).
+``msgpack_serialize`` is the writer, flax's ``msgpack_serialize`` (what
+``flax.serialization.to_bytes`` writes for a state dict), and
+``write_checkpoint`` writes a checkpoint directory as the JAX package's
+``write_checkpoint_file`` does (cet_pick_tpu/train/state.py:139-150).
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ EXT_COMPLEX = 2
 EXT_NPSCALAR = 3
 
 _CHUNKED = "__msgpack_chunked_array__"
+# flax's leaf limit (serialization.py, MAX_CHUNK_SIZE): a larger array leaf
+# is written in flat chunks of at most this many bytes
+MAX_CHUNK_SIZE = 2 ** 30
 
 
 class ExtValue:
@@ -185,3 +192,160 @@ def read_checkpoint(path: str, filename: str = CHECKPOINT_FILE) -> dict:
     """The restored ``filename`` of the JAX checkpoint directory ``path``."""
     with open(os.path.join(path, filename), "rb") as f:
         return msgpack_restore(f.read())
+
+
+# ---------------------------------------------------------------------------
+# writer
+# ---------------------------------------------------------------------------
+
+class _Encoder:
+    """msgpack encoding as ``msgpack.packb(tree, default=flax's ext hook,
+    strict_types=True)`` gives it: the smallest integer and length forms,
+    float64 for a Python float, str as UTF-8 str, bytes as bin."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def _head(self, n, fix, fix_max, forms):
+        """A length header: the fix form ``fix | n`` up to ``fix_max``,
+        else the first of ``forms`` ((type byte, struct format, max))
+        that holds ``n``."""
+        if fix is not None and n <= fix_max:
+            self.out.append(fix | n)
+            return
+        for byte, fmt, top in forms:
+            if n <= top:
+                self.out.append(byte)
+                self.out += struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack length {n} too large")
+
+    def _int(self, v):
+        if 0 <= v <= 0x7F or -32 <= v < 0:
+            self.out += struct.pack(">b" if v < 0 else ">B", v)
+            return
+        forms = ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                 (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2 ** 64 - 1)) \
+            if v > 0 else ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                           (0xD2, ">i", -2 ** 31), (0xD3, ">q", -2 ** 63))
+        for byte, fmt, bound in forms:
+            if (v <= bound) if v > 0 else (v >= bound):
+                self.out.append(byte)
+                self.out += struct.pack(fmt, v)
+                return
+        raise ValueError(f"integer {v} does not fit msgpack")
+
+    def _ext(self, code, data):
+        n = len(data)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            self.out.append(fixext[n])
+        else:
+            self._head(n, None, 0, ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF),
+                                    (0xC9, ">I", 0xFFFFFFFF)))
+        self.out += struct.pack(">b", code)
+        self.out += data
+
+    def value(self, v):
+        t = type(v)
+        if v is None:
+            self.out.append(0xC0)
+        elif t is bool:
+            self.out.append(0xC3 if v else 0xC2)
+        elif t is int:
+            self._int(v)
+        elif t is float:
+            self.out.append(0xCB)
+            self.out += struct.pack(">d", v)
+        elif t is str:
+            data = v.encode("utf-8")
+            self._head(len(data), 0xA0, 31, (
+                (0xD9, ">B", 0xFF), (0xDA, ">H", 0xFFFF),
+                (0xDB, ">I", 0xFFFFFFFF)))
+            self.out += data
+        elif t in (bytes, bytearray, memoryview):
+            data = bytes(v)
+            self._head(len(data), None, 0, (
+                (0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF),
+                (0xC6, ">I", 0xFFFFFFFF)))
+            self.out += data
+        elif t in (list, tuple):
+            self._head(len(v), 0x90, 15, ((0xDC, ">H", 0xFFFF),
+                                          (0xDD, ">I", 0xFFFFFFFF)))
+            for item in v:
+                self.value(item)
+        elif t is dict:
+            self._head(len(v), 0x80, 15, ((0xDE, ">H", 0xFFFF),
+                                          (0xDF, ">I", 0xFFFFFFFF)))
+            for k, item in v.items():
+                self.value(k)
+                self.value(item)
+        elif isinstance(v, np.ndarray):
+            self._ext(EXT_NDARRAY, _ndarray_bytes(v))
+        elif isinstance(v, np.generic):
+            self._ext(EXT_NPSCALAR, _ndarray_bytes(np.asarray(v)))
+        elif t is complex:
+            self._ext(EXT_COMPLEX, packb((v.real, v.imag)))
+        else:
+            raise TypeError(f"can not serialize {t.__name__!r} object")
+
+
+def packb(value) -> bytes:
+    """The msgpack bytes of ``value`` (``msgpack.packb`` with flax's ext
+    hook: an ndarray is ext 1, a numpy scalar ext 3, a complex ext 2)."""
+    enc = _Encoder()
+    enc.value(value)
+    return bytes(enc.out)
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    """flax's ``_ndarray_to_bytes`` (serialization.py:249-258): the msgpack
+    of (shape, dtype name, C-order bytes)."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("Object and structured dtypes not supported for "
+                         "serialization of ndarrays.")
+    return packb((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    """flax's ``_chunk``: a leaf over MAX_CHUNK_SIZE bytes as flat chunks."""
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    return {_CHUNKED: True,
+            "shape": {str(i): int(n) for i, n in enumerate(arr.shape)},
+            "chunks": {str(i): flat[j:j + size] for i, j in
+                       enumerate(range(0, flat.size, size))}}
+
+
+def _chunked(tree):
+    """flax's ``_chunk_array_leaves_in_place``, on a copy: the array leaves
+    of dicts (and the root) over MAX_CHUNK_SIZE bytes chunked."""
+    if isinstance(tree, dict):
+        return {k: _chunked(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) \
+            and tree.size * tree.dtype.itemsize > MAX_CHUNK_SIZE:
+        return _chunk(tree)
+    return tree
+
+
+def msgpack_serialize(tree) -> bytes:
+    """``flax.serialization.msgpack_serialize``: the bytes of a state dict
+    (nested dicts in their insertion order, lists, Python scalars, numpy
+    arrays and scalars), large leaves chunked."""
+    return packb(_chunked(tree))
+
+
+def write_checkpoint(path: str, payload: dict, config=None,
+                     filename: str = CHECKPOINT_FILE):
+    """``payload`` as ``<path>/<filename>``, through a temporary file and
+    ``os.replace`` so that an aborted write leaves the previous checkpoint
+    intact, and ``config`` as ``opt.json`` beside it: the JAX package's
+    ``write_checkpoint_file`` (cet_pick_tpu/train/state.py:139-150)."""
+    os.makedirs(path, exist_ok=True)
+    final = os.path.join(path, filename)
+    tmp = final + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_serialize(payload))
+    os.replace(tmp, final)
+    if config is not None:
+        config.save(os.path.join(path, "opt.json"))

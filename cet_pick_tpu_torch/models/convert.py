@@ -1,6 +1,13 @@
 """Weights carried across: JAX parameters and ``.pth`` checkpoints -> the
-port's state dict. Port of ``cet_pick_tpu/models/convert.py``
-(``flax_to_torch_state_dict``, convert.py:414-479).
+port's state dict, and back. Port of ``cet_pick_tpu/models/convert.py``
+(``flax_to_torch_state_dict``, convert.py:414-479, and its inverses
+``torch_state_dict_to_flax`` and kin, :46-290). Each family's mapping is
+one spec (``_Spec``: the port's key, the JAX tree and path, the layout of
+every tensor), read one way by ``state_dict_from_jax`` /
+``simsiam_state_dict_from_jax`` / ``scan_state_dict_from_jax`` and the
+other by ``jax_from_state_dict`` / ``jax_from_simsiam_state_dict``, so
+each direction is the exact inverse of the other. ``reference_payload``
+is the ``.pth`` JAX's ``export-torch`` writes.
 
 The port's ``TomoPickNet`` uses the reference ``TomoConvUNet`` state-dict
 layout, so the reference's checkpoints and the JAX package's
@@ -29,7 +36,7 @@ Layout rules from flax:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -41,11 +48,263 @@ from cet_pick_tpu_torch.io.flax_msgpack import (
 )
 
 
-def _get(tree, path):
+class _Leaf(NamedTuple):
+    """One tensor of a mapping: the port's state-dict key, the JAX tree
+    that holds it (``params`` or ``batch_stats``), its path there, its
+    layout (``conv``: flax (*k, in, out) <-> torch (out, in, *k), a Dense
+    kernel included; ``deconv``: the same with every spatial axis flipped
+    and torch's (in, out, *k); ``same``; ``count``: a BatchNorm's
+    ``num_batches_tracked``, 0, which JAX does not keep), and whether the
+    family may lack it."""
+    key: str
+    tree: str
+    path: tuple
+    layout: str
+    optional: bool = False
+
+
+class _Spec:
+    """The leaves of one family's mapping, built in its module order. The
+    port's state dict of a JAX tree and the JAX tree of a state dict both
+    read one spec, so each direction is the exact inverse of the other."""
+
+    def __init__(self, key_prefix="", path_prefix=()):
+        self.leaves = []
+        self.key_prefix = key_prefix
+        self.path_prefix = tuple(path_prefix)
+
+    def _add(self, key, tree, path, layout, optional):
+        self.leaves.append(_Leaf(self.key_prefix + key, tree,
+                                 self.path_prefix + tuple(path), layout,
+                                 optional))
+
+    def conv(self, key, path, bias=False, layout="conv", optional=False):
+        """A conv or Dense: ``kernel`` -> ``weight``; ``bias``: False,
+        True, or "optional" (taken where the tree or state dict has it)."""
+        self._add(key + ".weight", "params", path + ("kernel",), layout,
+                  optional)
+        if bias:
+            self._add(key + ".bias", "params", path + ("bias",), "same",
+                      optional or bias == "optional")
+
+    def norm(self, key, path, affine=True, stats=True, optional=False):
+        """A BatchNorm (``stats``: its running statistics) or GroupNorm:
+        scale / bias -> weight / bias, mean / var -> running_mean /
+        running_var."""
+        if affine:
+            self._add(key + ".weight", "params", path + ("scale",), "same",
+                      optional)
+            self._add(key + ".bias", "params", path + ("bias",), "same",
+                      optional)
+        if stats:
+            self._add(key + ".running_mean", "batch_stats", path + ("mean",),
+                      "same", optional)
+            self._add(key + ".running_var", "batch_stats", path + ("var",),
+                      "same", optional)
+            self._add(key + ".num_batches_tracked", "batch_stats",
+                      path + ("mean",), "count", optional)
+
+
+def _to_torch(layout, a):
+    n = a.ndim
+    if layout == "conv":
+        return np.transpose(a, (n - 1, n - 2, *range(n - 2)))
+    if layout == "deconv":
+        a = a[(slice(None, None, -1),) * (n - 2)]
+        return np.transpose(a, (n - 2, n - 1, *range(n - 2)))
+    return a
+
+
+def _to_flax(layout, w):
+    n = w.ndim
+    if layout == "conv":
+        return np.transpose(w, (*range(2, n), 1, 0))
+    if layout == "deconv":
+        w = np.transpose(w, (*range(2, n), 0, 1))
+        return w[(slice(None, None, -1),) * (n - 2)]
+    return w
+
+
+def _lookup(tree, path):
     node = tree
     for k in path:
+        if not isinstance(node, dict) or k not in node:
+            return None
         node = node[k]
-    return np.asarray(node)
+    return node
+
+
+def _state_dict_of(spec, params, batch_stats) -> Dict[str, torch.Tensor]:
+    """The port's state dict of JAX ``params`` / ``batch_stats`` along
+    ``spec``, ``num_batches_tracked`` included (0)."""
+    trees = {"params": params, "batch_stats": batch_stats or {}}
+    sd = {}
+    for leaf in spec.leaves:
+        node = _lookup(trees[leaf.tree], leaf.path)
+        if node is None:
+            if leaf.optional:
+                continue
+            raise KeyError(f"{'/'.join(leaf.path)} is not in the JAX "
+                           f"{leaf.tree}")
+        sd[leaf.key] = (np.array(0, np.int64) if leaf.layout == "count"
+                        else _to_torch(leaf.layout, np.asarray(node)))
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _jax_of(spec, sd):
+    """(params, batch_stats): the JAX trees of the state dict ``sd`` along
+    ``spec``; ``num_batches_tracked`` is dropped, as JAX keeps none."""
+    trees = {"params": {}, "batch_stats": {}}
+    for leaf in spec.leaves:
+        if leaf.layout == "count":
+            continue
+        if leaf.key not in sd:
+            if leaf.optional:
+                continue
+            raise KeyError(f"{leaf.key} is not in the state dict")
+        node = trees[leaf.tree]
+        for k in leaf.path[:-1]:
+            node = node.setdefault(k, {})
+        w = sd[leaf.key]
+        w = w.detach().cpu().numpy() if isinstance(w, torch.Tensor) \
+            else np.asarray(w)
+        node[leaf.path[-1]] = np.ascontiguousarray(_to_flax(leaf.layout, w))
+    return trees["params"], trees["batch_stats"]
+
+
+def _unet_spec(n_blocks, heads, wide=False) -> _Spec:
+    """``TomoPickNet`` (``unet_N``; the reference ``TomoConvUNet`` names,
+    convert.py:414-479) or, ``wide``, ``TomoPickNetW`` (``unetw_N``, whose
+    ``_PatchStem`` has ``embed`` and ``mix`` convs)."""
+    s = _Spec()
+    if wide:
+        s.conv("stem.embed", ("stem", "embed"))
+        s.conv("stem.mix", ("stem", "mix"))
+        s.norm("stem_bn", ("stem_bn",))
+    else:
+        s.conv("conv1", ("stem",))
+        s.norm("bn1", ("stem_bn",))
+    for i in range(n_blocks):
+        base, blk = f"unet.down_convs.{i}", ("unet", f"down{i}")
+        for j in range(2):
+            s.conv(f"{base}.conv{j + 1}", blk + (f"ConvNormAct_{j}", "Conv_0"),
+                   bias="optional")
+            s.norm(f"{base}.norm{j}", blk + (f"ConvNormAct_{j}",
+                                               "BatchNorm_0"))
+    for i in range(n_blocks - 1):
+        base, blk = f"unet.up_convs.{i}", ("unet", f"up{i}")
+        s.conv(base + ".upconv", blk + ("ConvTranspose_0",), bias="optional",
+               layout="deconv")
+        s.norm(base + ".norm0", blk + ("BatchNorm_0",))
+        for j in range(2):
+            s.conv(f"{base}.conv{j + 1}", blk + (f"ConvNormAct_{j}", "Conv_0"),
+                   bias="optional")
+            s.norm(f"{base}.norm{j + 1}", blk + (f"ConvNormAct_{j}",
+                                                   "BatchNorm_0"))
+    s.conv("unet.conv_final", ("unet", "final"), bias="optional")
+    s.conv("feature_head.0", ("feature_head", "conv0"))
+    s.conv("feature_head.2", ("feature_head", "conv1"))
+    for head in heads:
+        s.conv(head, (head,))
+    return s
+
+
+def _pick3d_spec(n_blocks, heads) -> _Spec:
+    """JAX ``TomoPickNet3D`` (detector3d.py) -> the port's
+    ``models/detector3d.TomoPickNet3D`` names; GroupNorm, no running
+    statistics."""
+    s = _Spec()
+    s.conv("stem", ("stem",))
+    s.norm("stem_gn", ("stem_gn",), stats=False)
+    for i in range(n_blocks):
+        for conv in ("conv1", "conv2", "proj"):
+            s.conv(f"blocks.{i}.{conv}", (f"block{i}", conv), optional=True)
+        for gn in ("gn1", "gn2"):
+            s.norm(f"blocks.{i}.{gn}", (f"block{i}", gn), stats=False)
+    s.conv("context.0", ("context0",))
+    s.conv("context.2", ("context1",))
+    for head in heads:
+        s.conv(head, (head,))
+    return s
+
+
+def _res3dref_spec(heads) -> _Spec:
+    """JAX ``TomoRes3DRefNet`` -> the reference ``TomoRes3DNet`` names of
+    ``models/detector3d_ref`` (``res3d_flax_to_torch_state_dict``,
+    convert.py:659-692); no norms."""
+    s = _Spec()
+    s.conv("conv1", ("conv1",))
+    for stage in (1, 2):
+        for b in range(2):
+            src, dst = (f"layer{stage}_{b}",), f"layer{stage}.{b}"
+            s.conv(dst + ".conv1", src + ("conv1",))
+            s.conv(dst + ".conv2", src + ("conv2",))
+            s.conv(dst + ".downsample.0", src + ("downsample",),
+                   optional=True)
+    for i in range(2):
+        s.conv(f"deconv_layers.{4 * i}", (f"deconv{i}_conv",))
+        s.conv(f"deconv_layers.{4 * i + 2}", (f"deconv{i}_up",),
+               layout="deconv")
+    s.conv("feature_head.0", ("feature_head",), bias=True)
+    for head in heads:
+        s.conv(head, (head,), bias=True)
+    return s
+
+
+def _simsiam_spec(key_prefix="", path_prefix=()) -> _Spec:
+    """JAX ``SimSiamEncoder`` -> the reference layouts
+    (``simsiam_flax_to_torch_state_dict``, ``_ref_vol_flax_to_torch``,
+    convert.py:482-611): the 2D trunk's blocks have BatchNorms and a
+    conv + BN downsample, the reference moco3d blocks none and a conv-only
+    downsample; the vol trunks have the Conv3d ``feature_3d``; a SCAN
+    backbone has no ``pred``."""
+    s = _Spec(key_prefix, path_prefix)
+    s.conv("conv1", ("trunk", "conv1"))
+    s.norm("bn1", ("trunk", "bn1"))
+    for stage in range(3):
+        for b in range(2):
+            dst = f"layer{stage + 1}.{b}"
+            src = ("trunk", f"layer{stage + 1}_{b}")
+            s.conv(dst + ".conv1", src + ("conv1",))
+            s.conv(dst + ".conv2", src + ("conv2",))
+            s.norm(dst + ".bn1", src + ("bn1",), optional=True)
+            s.norm(dst + ".bn2", src + ("bn2",), optional=True)
+            s.conv(dst + ".downsample.0", src + ("downsample_conv",),
+                   optional=True)
+            s.norm(dst + ".downsample.1", src + ("downsample_bn",),
+                   optional=True)
+    s.conv("feature_3d.0", ("trunk", "f3d_conv"), optional=True)
+    s.norm("feature_3d.1", ("trunk", "f3d_bn"), optional=True)
+    s.conv("fc", ("fc",), bias=True)
+    s.conv("proj.0", ("proj", "fc0"))
+    s.norm("proj.1", ("proj", "bn0"))
+    s.conv("proj.3", ("proj", "fc1"))
+    s.norm("proj.4", ("proj", "bn1"))
+    s.conv("proj.6", ("proj", "fc2"))
+    s.norm("proj.7", ("proj", "bn2"), affine=False)
+    s.conv("pred.0", ("pred", "fc0"), optional=True)
+    s.norm("pred.1", ("pred", "bn0"), optional=True)
+    s.conv("pred.3", ("pred", "fc1"), bias=True, optional=True)
+    return s
+
+
+def _scan_spec(n_heads) -> _Spec:
+    """JAX ``ScanClusteringModel`` -> the reference ``ClusteringModel``:
+    the encoder under ``backbone``, each ``head{i}`` Dense as
+    ``cluster_head.{i}`` (cet_pick_tpu/__main__.py:876-887)."""
+    s = _simsiam_spec("backbone.", ("backbone",))
+    s.key_prefix, s.path_prefix = "", ()
+    for i in range(n_heads):
+        s.conv(f"cluster_head.{i}", (f"head{i}",), bias=True)
+    return s
+
+
+def _detector_spec(n_blocks, heads, res3dref, pick3d, wide) -> _Spec:
+    if res3dref:
+        return _res3dref_spec(heads)
+    if pick3d:
+        return _pick3d_spec(n_blocks, heads)
+    return _unet_spec(n_blocks, heads, wide)
 
 
 def state_dict_from_jax(params, batch_stats, n_blocks: int,
@@ -56,139 +315,24 @@ def state_dict_from_jax(params, batch_stats, n_blocks: int,
     parameter tree: ``TomoRes3DRefNet`` has ``layer1_0``,
     ``TomoPickNet3D`` has ``stem_gn``, and ``unetw_N``'s stem has ``embed``
     and ``mix`` convs."""
-    if "layer1_0" in params:
-        return _res3dref_from_jax(params, heads)
-    if "stem_gn" in params:
-        return _pick3d_from_jax(params, n_blocks, heads)
-    sd: Dict = {}
-
-    def bn(dst, src):
-        sd[dst + ".weight"] = _get(params, src + ("scale",))
-        sd[dst + ".bias"] = _get(params, src + ("bias",))
-        sd[dst + ".running_mean"] = _get(batch_stats, src + ("mean",))
-        sd[dst + ".running_var"] = _get(batch_stats, src + ("var",))
-        sd[dst + ".num_batches_tracked"] = np.array(0, np.int64)
-
-    def conv2d(dst, src, bias=True):
-        sd[dst + ".weight"] = np.transpose(_get(params, src + ("kernel",)),
-                                           (3, 2, 0, 1))
-        _maybe_bias(dst, src, bias)
-
-    def conv3d(dst, src, bias=True):
-        sd[dst + ".weight"] = np.transpose(_get(params, src + ("kernel",)),
-                                           (4, 3, 0, 1, 2))
-        _maybe_bias(dst, src, bias)
-
-    def deconv2d(dst, src, bias=True):
-        w = _get(params, src + ("kernel",))[::-1, ::-1]
-        sd[dst + ".weight"] = np.transpose(w, (2, 3, 0, 1))
-        _maybe_bias(dst, src, bias)
-
-    def _maybe_bias(dst, src, bias):
-        node = params
-        try:
-            for k in src:
-                node = node[k]
-            if bias and "bias" in node:
-                sd[dst + ".bias"] = np.asarray(node["bias"])
-        except (KeyError, TypeError):
-            pass
-
-    if "embed" in params["stem"]:  # unetw_N: _PatchStem
-        conv2d("stem.embed", ("stem", "embed"), bias=False)
-        conv2d("stem.mix", ("stem", "mix"), bias=False)
-        bn("stem_bn", ("stem_bn",))
-    else:
-        conv2d("conv1", ("stem",), bias=False)
-        bn("bn1", ("stem_bn",))
-    for i in range(n_blocks):
-        base = f"unet.down_convs.{i}"
-        blk = ("unet", f"down{i}")
-        conv2d(base + ".conv1", blk + ("ConvNormAct_0", "Conv_0"))
-        bn(base + ".norm0", blk + ("ConvNormAct_0", "BatchNorm_0"))
-        conv2d(base + ".conv2", blk + ("ConvNormAct_1", "Conv_0"))
-        bn(base + ".norm1", blk + ("ConvNormAct_1", "BatchNorm_0"))
-    for i in range(n_blocks - 1):
-        base = f"unet.up_convs.{i}"
-        blk = ("unet", f"up{i}")
-        deconv2d(base + ".upconv", blk + ("ConvTranspose_0",))
-        bn(base + ".norm0", blk + ("BatchNorm_0",))
-        conv2d(base + ".conv1", blk + ("ConvNormAct_0", "Conv_0"))
-        bn(base + ".norm1", blk + ("ConvNormAct_0", "BatchNorm_0"))
-        conv2d(base + ".conv2", blk + ("ConvNormAct_1", "Conv_0"))
-        bn(base + ".norm2", blk + ("ConvNormAct_1", "BatchNorm_0"))
-    conv2d("unet.conv_final", ("unet", "final"))
-    conv3d("feature_head.0", ("feature_head", "conv0"), bias=False)
-    conv3d("feature_head.2", ("feature_head", "conv1"), bias=False)
-    for head in heads:
-        conv3d(head, (head,), bias=False)
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    spec = _detector_spec(n_blocks, heads, "layer1_0" in params,
+                          "stem_gn" in params,
+                          "embed" in params.get("stem", {}))
+    return _state_dict_of(spec, params, batch_stats)
 
 
-def _conv3d_weight(params, src):
-    """flax Conv (kd, kh, kw, in, out) -> torch (out, in, kd, kh, kw)."""
-    return np.transpose(_get(params, src + ("kernel",)), (4, 3, 0, 1, 2))
-
-
-def _pick3d_from_jax(params, n_blocks, heads):
-    """JAX ``TomoPickNet3D`` (detector3d.py) -> the port's
-    ``models/detector3d.TomoPickNet3D``; GroupNorm scale/bias ->
-    weight/bias, no running statistics."""
-    sd: Dict = {"stem.weight": _conv3d_weight(params, ("stem",))}
-
-    def gn(dst, src):
-        sd[dst + ".weight"] = _get(params, src + ("scale",))
-        sd[dst + ".bias"] = _get(params, src + ("bias",))
-
-    gn("stem_gn", ("stem_gn",))
-    for i in range(n_blocks):
-        blk = (f"block{i}",)
-        for conv in ("conv1", "conv2", "proj"):
-            if conv in params[blk[0]]:
-                sd[f"blocks.{i}.{conv}.weight"] = _conv3d_weight(
-                    params, blk + (conv,))
-        gn(f"blocks.{i}.gn1", blk + ("gn1",))
-        gn(f"blocks.{i}.gn2", blk + ("gn2",))
-    sd["context.0.weight"] = _conv3d_weight(params, ("context0",))
-    sd["context.2.weight"] = _conv3d_weight(params, ("context1",))
-    for head in heads:
-        sd[head + ".weight"] = _conv3d_weight(params, (head,))
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
-
-
-def _res3dref_from_jax(params, heads):
-    """JAX ``TomoRes3DRefNet`` -> the reference ``TomoRes3DNet`` names of
-    ``models/detector3d_ref`` (``res3d_flax_to_torch_state_dict``,
-    convert.py:659-692). A transpose conv's kernel is flipped on all three
-    spatial axes (``_deconv3d``, convert.py:614-619)."""
-    sd: Dict = {}
-
-    def conv(dst, src, bias=False):
-        sd[dst + ".weight"] = _conv3d_weight(params, src)
-        if bias:
-            sd[dst + ".bias"] = _get(params, src + ("bias",))
-
-    def deconv(dst, src):
-        w = _get(params, src + ("kernel",))[::-1, ::-1, ::-1]
-        sd[dst + ".weight"] = np.transpose(w, (3, 4, 0, 1, 2))
-
-    conv("conv1", ("conv1",))
-    for stage in (1, 2):
-        for b in range(2):
-            src = (f"layer{stage}_{b}",)
-            dst = f"layer{stage}.{b}"
-            conv(dst + ".conv1", src + ("conv1",))
-            conv(dst + ".conv2", src + ("conv2",))
-            if "downsample" in params[src[0]]:
-                conv(dst + ".downsample.0", src + ("downsample",))
-    conv("deconv_layers.0", ("deconv0_conv",))
-    deconv("deconv_layers.2", ("deconv0_up",))
-    conv("deconv_layers.4", ("deconv1_conv",))
-    deconv("deconv_layers.6", ("deconv1_up",))
-    conv("feature_head.0", ("feature_head",), bias=True)
-    for head in heads:
-        conv(head, (head,), bias=True)
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+def jax_from_state_dict(state_dict, n_blocks: int, heads):
+    """Inverse of :func:`state_dict_from_jax`: a detector's state dict
+    (the port's or a reference ``.pth``'s) -> JAX (``params``,
+    ``batch_stats``), bit for bit; the family is read from the keys
+    (``is_res3d_format``, ``stem_gn``, ``stem.embed``). Tensors the
+    family's heads or depth do not name are left out, as JAX's
+    ``torch_state_dict_to_flax`` leaves them (convert.py:46-100); one it
+    names and the state dict lacks raises KeyError."""
+    spec = _detector_spec(n_blocks, heads, is_res3d_format(state_dict),
+                          "stem_gn.weight" in state_dict,
+                          "stem.embed.weight" in state_dict)
+    return _jax_of(spec, state_dict)
 
 
 def is_res3d_format(state_dict) -> bool:
@@ -274,7 +418,6 @@ def load_checkpoint(path: str, arch=None) -> Dict[str, torch.Tensor]:
                 f"weight-compatible with it)")
     return sd
 
-
 def simsiam_state_dict_from_jax(params, batch_stats
                                 ) -> Dict[str, torch.Tensor]:
     """JAX ``SimSiamEncoder`` variables -> the port's state dict,
@@ -286,59 +429,7 @@ def simsiam_state_dict_from_jax(params, batch_stats
     kernel is ``SliceTrunkRef``, a 5-D one ``VolTrunkRef``) that of
     ``_ref_vol_flax_to_torch`` (convert.py:542-611), and ``VolTrunk`` (5-D
     conv1, no ``f3d_conv``) the 2D trunk's names on its Conv3d / BN3d."""
-    sd: Dict = {}
-    trunk = params["trunk"]
-
-    def bn(dst, src, affine=True):
-        if affine:
-            sd[dst + ".weight"] = _get(params, src + ("scale",))
-            sd[dst + ".bias"] = _get(params, src + ("bias",))
-        sd[dst + ".running_mean"] = _get(batch_stats, src + ("mean",))
-        sd[dst + ".running_var"] = _get(batch_stats, src + ("var",))
-        sd[dst + ".num_batches_tracked"] = np.array(0, np.int64)
-
-    def conv(dst, src):
-        k = _get(params, src + ("kernel",))  # (*k, in, out)
-        n = k.ndim
-        sd[dst + ".weight"] = np.transpose(k, (n - 1, n - 2, *range(n - 2)))
-
-    def dense(dst, src, bias=True):
-        sd[dst + ".weight"] = np.transpose(_get(params, src + ("kernel",)),
-                                           (1, 0))
-        if bias:
-            sd[dst + ".bias"] = _get(params, src + ("bias",))
-
-    conv("conv1", ("trunk", "conv1"))
-    bn("bn1", ("trunk", "bn1"))
-    for stage in range(3):
-        for b in range(2):
-            dst = f"layer{stage + 1}.{b}"
-            blk = trunk[f"layer{stage + 1}_{b}"]
-            src = ("trunk", f"layer{stage + 1}_{b}")
-            conv(dst + ".conv1", src + ("conv1",))
-            conv(dst + ".conv2", src + ("conv2",))
-            if "bn1" in blk:  # the reference moco3d block has no BN
-                bn(dst + ".bn1", src + ("bn1",))
-                bn(dst + ".bn2", src + ("bn2",))
-            if "downsample_conv" in blk:
-                conv(dst + ".downsample.0", src + ("downsample_conv",))
-            if "downsample_bn" in blk:
-                bn(dst + ".downsample.1", src + ("downsample_bn",))
-    if "f3d_conv" in trunk:
-        conv("feature_3d.0", ("trunk", "f3d_conv"))
-        bn("feature_3d.1", ("trunk", "f3d_bn"))
-    dense("fc", ("fc",))
-    dense("proj.0", ("proj", "fc0"), bias=False)
-    bn("proj.1", ("proj", "bn0"))
-    dense("proj.3", ("proj", "fc1"), bias=False)
-    bn("proj.4", ("proj", "bn1"))
-    dense("proj.6", ("proj", "fc2"), bias=False)
-    bn("proj.7", ("proj", "bn2"), affine=False)
-    if "pred" in params:  # a SCAN backbone has none
-        dense("pred.0", ("pred", "fc0"), bias=False)
-        bn("pred.1", ("pred", "bn0"))
-        dense("pred.3", ("pred", "fc1"))
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    return _state_dict_of(_simsiam_spec(), params, batch_stats)
 
 
 def scan_state_dict_from_jax(params, batch_stats
@@ -348,16 +439,63 @@ def scan_state_dict_from_jax(params, batch_stats
     :func:`simsiam_state_dict_from_jax` under ``backbone.`` (it has no
     ``pred``), each ``head{i}`` Dense as ``cluster_head.{i}`` (the mapping
     of JAX's ``export-torch``, cet_pick_tpu/__main__.py:876-887)."""
-    sd = {"backbone." + k: v for k, v in simsiam_state_dict_from_jax(
-        params["backbone"], batch_stats.get("backbone", {})).items()}
-    i = 0
-    while f"head{i}" in params:
-        sd[f"cluster_head.{i}.weight"] = torch.from_numpy(np.array(
-            _get(params, (f"head{i}", "kernel")).T))
-        sd[f"cluster_head.{i}.bias"] = torch.from_numpy(np.array(
-            _get(params, (f"head{i}", "bias"))))
-        i += 1
-    return sd
+    n_heads = sum(k.startswith("head") for k in params)
+    return _state_dict_of(_scan_spec(n_heads), params, batch_stats)
+
+
+def jax_from_simsiam_state_dict(state_dict):
+    """Inverse of :func:`simsiam_state_dict_from_jax` and, for a state dict
+    with ``backbone.*`` keys, of :func:`scan_state_dict_from_jax`: an
+    exploration encoder's state dict (the port's, or what
+    :func:`load_simsiam_checkpoint` returns for a reference ``.pth``) ->
+    JAX (``params``, ``batch_stats``), bit for bit."""
+    if any(k.startswith("backbone.") for k in state_dict):
+        n_heads = sum(k.startswith("cluster_head.") and k.endswith(".weight")
+                      for k in state_dict)
+        return _jax_of(_scan_spec(n_heads), state_dict)
+    return _jax_of(_simsiam_spec(), state_dict)
+
+
+# the archs JAX's export-torch writes, by family (cet_pick_tpu/__main__.py:
+# 828-838): the reference TomoConvUNet, TomoRes3DNet, the patch encoders
+# (SCAN's ClusteringModel too) and the two reference subvolume encoders
+EXPORT_FAMILIES = ("unet", "res3dref", "simsiamref", "moco3dref", "simsiam")
+
+
+def export_family(arch: str):
+    """The family JAX's ``export-torch`` writes for ``arch``, or None where
+    it refuses the arch (``unetw_N``, ``simsiam_N``, ``moco3d_N`` and the
+    3D detectors other than ``res3dref_N`` have no reference layout)."""
+    stem = arch.split("_")[0]
+    if stem in ("simsiam", "moco3d", "unetw") or not arch.startswith(
+            ("unet", "simsiam", "res3dref", "moco3dref")):
+        return None
+    return next(f for f in EXPORT_FAMILIES if arch.startswith(f))
+
+
+def reference_payload(state_dict, family: str, epoch: int,
+                      best_loss_head=None) -> dict:
+    """The ``.pth`` payload JAX's ``export-torch`` writes
+    (cet_pick_tpu/__main__.py:793-907), from the port's state dict of the
+    same weights: ``{'epoch', 'state_dict'}`` (reference models/model.py:
+    283-296) with no ``num_batches_tracked``; a MoCo run's query encoder
+    (``encoder_q.*``, its key encoder and queue dropped); the reference
+    moco3d encoder without ``pred`` (JAX's ``_ref_vol_flax_to_torch``
+    writes none for it); SCAN's ``backbone.*`` + ``cluster_head.{i}.*``
+    as they are, and ``best_loss_head`` where given (``best_head.json``)."""
+    if family not in EXPORT_FAMILIES:
+        raise ValueError(f"no reference layout for family {family!r}")
+    sd = state_dict
+    if any(k.startswith("encoder_q.") for k in sd):
+        sd = {k[len("encoder_q."):]: v for k, v in sd.items()
+              if k.startswith("encoder_q.")}
+    payload = {"epoch": int(epoch), "state_dict": {
+        k: v.detach().cpu().contiguous().clone() for k, v in sd.items()
+        if not k.endswith("num_batches_tracked")
+        and not (family == "moco3dref" and k.startswith("pred."))}}
+    if best_loss_head is not None:
+        payload["best_loss_head"] = int(best_loss_head)
+    return payload
 
 
 def simsiam_family(sd) -> str:

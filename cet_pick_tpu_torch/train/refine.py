@@ -152,14 +152,17 @@ def optimizer_step(model, loss_fn):
 
 
 def make_val_step(model):
-    """Whole-volume validation loss: plain focal in eval mode
-    (refine.py:198-210). On the card the head runs the z-tap kernel."""
+    """Whole-volume validation: ``val_step(state, volume, gt_hm)`` returns
+    the plain focal loss in eval mode (refine.py:198-210) and the clamped
+    sigmoid heatmap it was taken on, which ``--debug`` decodes. On the card
+    the head runs the z-tap kernel."""
 
     def val_step(state, volume, gt_hm):
         model.eval()
         with torch.no_grad():
             out = model(volume, active_heads=("hm",))
-            return L.focal_loss(sigmoid_clamped(out["hm"][..., 0]), gt_hm)
+            hm = sigmoid_clamped(out["hm"][..., 0])
+            return L.focal_loss(hm, gt_hm), hm
 
     return val_step
 
@@ -251,12 +254,9 @@ def train_refine(config, dataset, val_dataset=None, num_epochs=None,
                  log_fn=print, prepared=None, device="cuda"):
     """Full training loop (refine.py:308-420): epochs, LR steps, the
     ``--num_iters`` cap, write-behind ``model_last.pth``, and every
-    ``val_intervals`` epochs validation, ``model_best.pth`` and, with
+    ``val_intervals`` epochs validation (with ``--debug > 0`` the overlays
+    of :func:`debug_val_volume`), ``model_best.pth`` and, with
     ``--save_all``, ``model_<epoch>.pth``. Returns (state, history)."""
-    if config.debug > 0:
-        raise NotImplementedError(
-            "--debug > 0 writes validation overlays through utils/debugger.py, "
-            "which is not ported yet")
     if prepared is None:
         prepared = prepare_refine(config, log_fn=log_fn, device=device)
     model, state = prepared["model"], prepared["state"]
@@ -296,9 +296,12 @@ def train_refine(config, dataset, val_dataset=None, num_epochs=None,
                     vals = []
                     for i in range(len(val_dataset.names)):
                         item = val_dataset.val_item(i)
-                        vals.append(float(val_step(
+                        loss, hm = val_step(
                             state, torch.from_numpy(item["input"]).to(device),
-                            torch.from_numpy(item["hm"]).to(device))))
+                            torch.from_numpy(item["hm"]).to(device))
+                        vals.append(float(loss))
+                        if config.debug > 0:
+                            debug_val_volume(config, hm[0], item, epoch)
                     val_mean = float(np.mean(vals))
                     log_fn(f"epoch {epoch}: val_focal={val_mean:.5f}")
                     if val_mean < best_val:
@@ -312,6 +315,26 @@ def train_refine(config, dataset, val_dataset=None, num_epochs=None,
                                            f"model_{epoch}.pth"),
                               snap, config, snapshotted=True)
     return state, history
+
+
+def debug_val_volume(config, hm, item, epoch):
+    """``--debug`` on one validation item (refine.py:451-470): the clamped
+    sigmoid heatmap of its eval forward with ``active_heads=("hm",)``
+    (``hm``, (D, H', W'), the one its validation loss was taken on), decoded
+    with ``--nms`` / ``--K``; every 4th slice's overlays and the detection
+    txt under ``debug_dir/epoch{E}_{name}/`` (``utils/debugger.py``)."""
+    from cet_pick_tpu_torch.ops.decode import tomo_decode
+    from cet_pick_tpu_torch.utils.debugger import (
+        Debugger,
+        debug_validation_volume,
+    )
+
+    dets = tomo_decode(hm, kernel=config.nms, k=config.K).cpu().numpy()
+    dbg = Debugger(os.path.join(config.debug_dir,
+                                f"epoch{epoch}_{item['name']}"))
+    debug_validation_volume(dbg, item["input"][0], hm.cpu().numpy(),
+                            item["hm"][0], dets=dets)
+    dbg.save_detection_txt(item["name"], dets, down_ratio=config.down_ratio)
 
 
 def _best_val_path(save_dir):

@@ -77,9 +77,10 @@ def train_semiclass(config, dataset, val_dataset=None, num_epochs=None,
                 for i in range(len(val_dataset.names)):
                     item = val_dataset.val_item(i)
                     gt = np.where(item["hm"] < 0, 0.0, item["hm"])
-                    vals.append(float(val_step(
+                    loss, _ = val_step(
                         state, torch.from_numpy(item["input"]).to(device),
-                        torch.from_numpy(gt.astype(np.float32)).to(device))))
+                        torch.from_numpy(gt.astype(np.float32)).to(device))
+                    vals.append(float(loss))
                 log_fn(f"epoch {epoch}: val_focal={np.mean(vals):.5f}")
                 if config.save_all:
                     ckpt.save(os.path.join(config.save_dir,

@@ -279,6 +279,48 @@ def _torch_state_of_jax(state: TrainState, payload):
     return sd
 
 
+def fresh_jax_opt_state(params, lr: float, optimizer: str = "adam") -> dict:
+    """The ``opt_state`` a fresh JAX train state serializes to, the tree
+    ``_jax_optimizer_state`` walks: optax 0.2.6's ``inject_hyperparams``
+    state (``count``, ``hyperparams``, ``hyperparams_states``,
+    ``inner_state``) around ``adam`` (``create_train_state``,
+    cet_pick_tpu/train/state.py:59-92: zero moments shaped as ``params``,
+    the injected b1 / b2 / eps / eps_root) or ``sgd`` without momentum
+    (``create_simsiam_state``, cet_pick_tpu/train/explore.py:40-61: two
+    empty states); counts int32 0, hyperparameters float32."""
+    def f32(v):
+        return np.array(v, np.float32)
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v)
+                for k, v in tree.items()}
+
+    count = np.array(0, np.int32)
+    if optimizer == "sgd":
+        return {"count": count, "hyperparams": {"learning_rate": f32(lr)},
+                "hyperparams_states": {}, "inner_state": {"0": {}, "1": {}}}
+    if optimizer != "adam":
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    return {"count": count,
+            "hyperparams": {"learning_rate": f32(lr), "b1": f32(0.9),
+                            "b2": f32(0.999), "eps": f32(1e-8),
+                            "eps_root": f32(0.0)},
+            "hyperparams_states": {},
+            "inner_state": {"0": {"count": count.copy(), "mu": zeros(params),
+                                  "nu": zeros(params)}, "1": {}}}
+
+
+def fresh_jax_payload(params, batch_stats, lr: float,
+                      optimizer: str = "adam") -> dict:
+    """What JAX's ``save_checkpoint`` writes for a fresh train state over
+    ``params`` / ``batch_stats`` (``checkpoint_payload``,
+    cet_pick_tpu/train/state.py:108-116): step and epoch 0 and
+    :func:`fresh_jax_opt_state`."""
+    return {"step": 0, "epoch": 0, "params": params,
+            "batch_stats": batch_stats,
+            "opt_state": fresh_jax_opt_state(params, lr, optimizer)}
+
+
 def load_checkpoint(path: str, state: TrainState,
                     resume: bool = False) -> TrainState:
     """Load a ``.pth`` or a JAX checkpoint directory into ``state``

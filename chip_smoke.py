@@ -104,7 +104,7 @@ non-zero; nothing falls back to the CPU):
              patches; patches/s and the 1-NN label agreement of ``proj``
              between the two planted classes (reported)
 17. explore_2d / embed_2d  the same for ``--task simsiam3d --arch
-             simsiam2d_18`` (z-slice patches only) for 2 epochs
+             simsiam2d_18`` (z-slice patches only) for 1 epoch
 
 The slice of ``watch``, ``classify``, freeze, ``--profile_dir`` and
 ``doctor`` adds:
@@ -144,7 +144,7 @@ test-split candidate) and ``explore``'s ``model_last.pth``:
              steps, batch 128): losses finite, both clusters used,
              neighbour consistency > 0.5; purity reported
 - scan_finetune ``scan-finetune`` (2d3d, batch 64, 2 clusters, 3 heads,
-             300 SCAN + 100 self-label steps): losses finite, best head in
+             150 SCAN + 50 self-label steps): losses finite, best head in
              [0, 3), ``scan_model_last.pth`` read back strict, consistency
              > 0.5, one step card against CPU within the explore bars;
              step ms, samples/s, purity
@@ -159,14 +159,14 @@ The slice of exploration's 3D-subvolume mode and MoCo adds:
              at batch 256; one ``moco3d_18`` MoCo step (loss, queue rows,
              query and key parameters, the key's BN buffers)
 - explore_vol ``explore --task simsiam --arch simsiam_18`` at its defaults
-             (batch 256, 8x64x64), 2 epochs of VOL_ITERS steps: losses
+             (batch 256, 8x64x64), 1 epoch of VOL_ITERS steps: losses
              finite, std > 0.01, ``model_last.pth``; samples/s, peak
              bytes; then one step by stage with the busy share
              (``explore_breakdown_vol``)
 - embed_vol  ``embed`` on it: keys, dtypes, shapes (``subvol`` (N, 8, 64,
              64)), patches/s, 1-NN agreement
-- moco       ``moco`` at its defaults (2d, batch 128, head_conv 256) for 2
-             epochs, ``--arch moco3d_18`` for 2 x MOCO_VOL_ITERS steps,
+- moco       ``moco`` at its defaults (2d, batch 128, head_conv 256) for 1
+             epoch, ``--arch moco3d_18`` for MOCO_VOL_ITERS steps,
              MOCO_SYM_STEPS steps of ``--moco_symmetric``: losses finite,
              ``acc`` in [0, 1], the queue's rows unit vectors, its pointer
              at steps x block mod r, the key apart from the query; then
@@ -218,6 +218,31 @@ adds, after ``vol_migration`` (walls in the same ``walls`` line):
              2,048 random poses with shifts, ``backproject --first 2000``:
              correlation with the volume > 0.6, card vs CPU on 400 images
              within 1e-4 of the largest voxel; images/s
+
+The slice of ``export-torch``, ``import-torch``, ``--debug`` and the graft
+entry adds (walls in the ``walls`` line):
+
+- graft_entry after the model phases: ``graft_entry.entry()`` on the card,
+             ``fn(model, x)`` (unet_4, zeros (2, 6, 64, 64)): 2 z-tap
+             launches, ``hm`` / ``proj`` within 1e-4 of the largest value
+             of the same module's CPU output, on its zeros and on a seeded
+             volume
+- export_import after ``test_profile``: ``export-torch`` on the main
+             path's ``model_best.pth``, ``import-torch`` on the reference
+             ``.pth`` it writes, then ``test`` on one volume from the
+             imported directory and from the exported ``.pth``: the picks
+             txt and ``_hm.mrc`` byte-equal to the main path's ``test`` of
+             that volume, the z-tap launches equal to the one-volume
+             ``test_profile`` run's; the export and import walls
+- debug      ``train --task semi --arch unet_4 --debug 1``, one epoch of
+             DEBUG_STEPS steps validated on the main path's two volumes:
+             JAX's file set under ``debug/epoch1_<name>/`` (``pred_z*`` /
+             ``gt_z*`` every 4th z, ``det_z*`` where there are detections,
+             the txt), every PNG's CRCs and its IHDR at the heatmap's
+             size, the txt rows equal to a fresh decode of the same state's
+             eval forward, z-tap launches 2 x the validation volumes, row
+             gram launches equal to the steps; the peak bytes of the
+             untiled whole-volume forward
 
 The model phase also runs ``res3d_2`` and ``res3dref_18``: the card's
 untiled forward against the CPU's, and one untiled forward of a
@@ -273,6 +298,7 @@ from cet_pick_tpu_torch.infer.detector import TomoDetector
 from cet_pick_tpu_torch.infer.tiled import TiledHeatmapInference
 from cet_pick_tpu_torch.io.loader import load_rec, preprocess_quantized
 from cet_pick_tpu_torch.io.mrc import read_mrc, write_mrc
+from cet_pick_tpu_torch.models.convert import load_checkpoint
 from cet_pick_tpu_torch.models.detector import create_detector
 from cet_pick_tpu_torch.ops._build import build_libraries
 from cet_pick_tpu_torch.ops import gram as G
@@ -342,7 +368,7 @@ GRAM_GRAD = (3e-4, 3e-5)
 # one of three runs on the card (PERF.md).
 TRAIN_EPOCHS = 2
 PN_STEPS = 20
-BREAKDOWN_STEPS = 10
+BREAKDOWN_STEPS = 5  # 10 until the --debug phases (EXPLORE_EPOCHS)
 CR_EPOCHS = 2
 TOMO_STEPS = 20
 UNETW_EPOCHS = 4
@@ -1235,18 +1261,19 @@ def phase_train_semiclass(work, pn=False, epochs=None, exp_id=None,
 
 
 def phase_classify_test(work, names, planted, exp_id, phase, gate,
-                        ckpt="model_last.pth"):
-    """``classify-test`` with a semiclass run's ``ckpt`` on the
-    two volumes (CLASSIFY_ARGS): the z-tap kernel launched, the heatmaps'
-    30-voxel xy border zero, the candidates the greedy NMS visits, stage
-    times a volume, and the F1 of the picks against the planted centres
-    that the decode can pick: outside the border band (60 input px) and
-    the cutoff_z planes. Gated at SEMICLASS_F1_GATE when ``gate``."""
+                        ckpt="model_last.pth", listing="test_images.txt"):
+    """``classify-test`` with a semiclass run's ``ckpt`` on the volumes
+    ``names`` of the image list ``listing`` (CLASSIFY_ARGS): the z-tap
+    kernel launched, the heatmaps' 30-voxel xy border zero, the candidates
+    the greedy NMS visits, stage times a volume, and the F1 of the picks
+    against the planted centres that the decode can pick: outside the
+    border band (60 input px) and the cutoff_z planes. Gated at
+    SEMICLASS_F1_GATE when ``gate``."""
     argv = ["classify-test", "--arch", "unet_4", "--exp_id", exp_id,
             "--order", "zxy", "--data_dir", work, "--root_dir", work,
-            "--with_score", "--device", DEVICE, *CLASSIFY_ARGS,
-            "--load_model", os.path.join(work, "exp", "semiclass", exp_id,
-                                         ckpt)]
+            "--test_img_txt", listing, "--with_score", "--device", DEVICE,
+            *CLASSIFY_ARGS, "--load_model",
+            os.path.join(work, "exp", "semiclass", exp_id, ckpt)]
     cfg = Config(task="semiclass", ge=True, **CLASSIFY).finalize()
     lines, launches, wall = run_cli(argv)
     if launches["ztap_dilated_conv"] == 0:
@@ -1601,9 +1628,12 @@ EXPLORE_ANGLES = np.arange(-60.0, 61.0, 3.0)
 # large diffuse (tests/test_explore.py:407-440)
 EXPLORE_CLASSES = ((2.5, 2.0), (1.8, 3.0))
 # explore: 25,750 candidates in 100 steps an epoch, 12.6 s at 2,046
-# samples/s (PERF.md, PR 7): 4 epochs fill about a minute
-EXPLORE_EPOCHS = 4
-EXPLORE_2D_EPOCHS = 2
+# samples/s (PERF.md section 5). 2 epochs (4 until the smoke's phases for
+# export-torch, import-torch and --debug, whose time the cuts of this and
+# other phases' depth make up: the smoke keeps within its time limit on a
+# slow host), and 1 of the 2d mode and of the vol mode (2 before)
+EXPLORE_EPOCHS = 2
+EXPLORE_2D_EPOCHS = 1
 EXPLORE_BATCH = 256
 EXPLORE_MODEL_BATCH = 32  # the card-vs-CPU check: the CPU runs it too
 EXPLORE_STD_GATE = 0.01   # tests/test_explore.py:363
@@ -1640,9 +1670,9 @@ EXPLORE_ARGS = {"2d3d": ["--task", "simsiam2d3d", "--arch", "simsiam2d3d_18"],
 # against CPU holds the queue within MOCO_QUEUE_TOL.
 VOL_SIZE = (8, 64, 64)
 VOL_ARCHS = ("simsiam_18", "simsiamref_18", "moco3dref_18")
-VOL_EPOCHS = 2
-VOL_ITERS = 24
-MOCO_EPOCHS = 2
+VOL_EPOCHS = 1
+VOL_ITERS = 12  # 24, MOCO_EPOCHS 2, until the --debug phases
+MOCO_EPOCHS = 1
 MOCO_BATCH = 128
 MOCO_QUEUE = 1024
 MOCO_VOL_ITERS = 15
@@ -2489,10 +2519,11 @@ KNN_K = 20
 KNN_BAND = 1e-5
 # ``scan``: 2 clusters, 500 steps (its default) of batch 128; the
 # ``scan-finetune`` run: 2d3d at its defaults (bbox 36, batch 64), 2
-# clusters, 3 heads, 300 SCAN + 100 self-label steps
+# clusters, 3 heads, 150 SCAN + 50 self-label steps (300 + 100 until the
+# --debug phases)
 SCAN_CONSISTENCY_GATE = 0.5
-SCAN_FT_ARGS = ["--nclusters", "2", "--nheads", "3", "--steps", "300",
-                "--selflabel_steps", "100", "--batch_size", "64"]
+SCAN_FT_ARGS = ["--nclusters", "2", "--nheads", "3", "--steps", "150",
+                "--selflabel_steps", "50", "--batch_size", "64"]
 SCAN_FT_BATCH = 64
 SCAN_FT_TIMED_STEPS = 20
 
@@ -2998,6 +3029,226 @@ def phase_freeze(work):
     return rec, launches
 
 
+# the last two commands, --debug and the graft entry. export_import reads
+# the main path's model_best.pth; debug trains unet_4 --debug 1 for one
+# epoch of DEBUG_STEPS steps, validated on the main path's two volumes;
+# graft_entry runs entry() on the card and on the CPU.
+DEBUG_STEPS = 20
+DEBUG_EVERY = 4      # every 4th z slice gets overlays (debugger.py:88)
+GRAFT_TOL = 1e-4     # of the largest value of the CPU's output
+
+
+def phase_export_import(work, names, baseline):
+    """``export-torch`` on the main path's ``model_best.pth`` (a reference
+    ``.pth``), ``import-torch`` on that file (a JAX checkpoint directory),
+    then ``test`` on one volume from each: the picks txt and ``_hm.mrc``
+    byte-equal to the main path's ``test`` of that volume, and the z-tap
+    launches of each equal to ``baseline``'s (the one-volume ``test`` of
+    ``phase_test_profile``)."""
+    from cet_pick_tpu_torch.io.flax_msgpack import read_checkpoint
+
+    ckpt = os.path.join(work, "exp", "semi", "default", "model_best.pth")
+    exported = os.path.join(work, "exported", "model_best_reference.pth")
+    imported = os.path.join(work, "imported")
+    _, _, export_s = run_cli(["export-torch", "--load_model", ckpt,
+                              "--out", exported])
+    _, _, import_s = run_cli(["import-torch", "--arch", "unet_4",
+                              "--load_model", exported, "--out", imported])
+    payload = torch.load(exported, map_location="cpu", weights_only=True)
+    tree = read_checkpoint(imported)
+    listing = os.path.join(work, "one_image.txt")
+    with open(listing, "w") as f:
+        f.write(f"image_name\trec_path\n{names[0]}\t"
+                f"{os.path.join(work, names[0] + '.rec')}\n")
+    test_dir = os.path.join(work, "exp", "semi", "default", "output")
+    same, launches, walls = {}, {}, {}
+    for label, src in (("imported_dir", imported),
+                       ("exported_pth", exported)):
+        _, got, walls[label] = run_cli(
+            ["test", "--task", "semi", "--arch", "unet_4", "--exp_id",
+             f"from_{label}", "--order", "zxy", "--data_dir", work,
+             "--root_dir", work, "--test_img_txt", "one_image.txt",
+             "--with_score", "--device", DEVICE, "--load_model", src])
+        launches[label] = got["ztap_dilated_conv"]
+        out_dir = os.path.join(work, "exp", "semi", f"from_{label}",
+                               "output")
+        for f in (f"{names[0]}.txt", f"{names[0]}_hm.mrc"):
+            with open(os.path.join(out_dir, f), "rb") as a, \
+                    open(os.path.join(test_dir, f), "rb") as b:
+                same[f"{label}/{f}"] = a.read() == b.read()
+    rec = {"phase": "export_import", "arch": "unet_4",
+           "export_wall_s": export_s, "import_wall_s": import_s,
+           "exported_keys": sorted(payload), "exported_tensors":
+               len(payload["state_dict"]),
+           "imported_keys": sorted(tree), "outputs_equal_test": same,
+           "launches": launches,
+           "test_one_volume_launches": baseline["launches"][
+               "ztap_dilated_conv"],
+           "test_wall_s": walls}
+    emit(rec)
+    if sorted(payload) != ["epoch", "state_dict"] or any(
+            k.endswith("num_batches_tracked") for k in payload["state_dict"]):
+        raise RuntimeError(f"export-torch payload: {sorted(payload)}")
+    if sorted(tree) != ["batch_stats", "epoch", "opt_state", "params",
+                        "step"]:
+        raise RuntimeError(f"import-torch state.msgpack: {sorted(tree)}")
+    if not all(same.values()):
+        raise RuntimeError(f"export_import: outputs equal test {same}")
+    if set(launches.values()) != {rec["test_one_volume_launches"]} \
+            or rec["test_one_volume_launches"] == 0:
+        raise RuntimeError(f"export_import: z-tap launches {launches}, "
+                           f"test made {rec['test_one_volume_launches']}")
+    return rec
+
+
+def png_chunks(path):
+    """(type, data) of each chunk of a PNG file; raises where the signature
+    or a chunk's CRC is wrong."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        buf = f.read()
+    if buf[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    chunks, pos = [], 8
+    while pos < len(buf):
+        n, = struct.unpack(">I", buf[pos:pos + 4])
+        kind, data = buf[pos + 4:pos + 8], buf[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", buf[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + data) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: bad CRC in {kind!r}")
+        chunks.append((kind, data))
+        pos += 12 + n
+    return chunks
+
+
+def phase_debug(work, names):
+    """``train --task semi --arch unet_4 --debug 1``: one epoch of
+    DEBUG_STEPS steps, validated on the main path's two volumes. Gates: the
+    file set JAX's rule gives (``pred_z*`` / ``gt_z*`` every DEBUG_EVERY-th
+    z, ``det_z*`` where the decode has detections on the slice, the txt),
+    each PNG's chunk CRCs and its IHDR at the heatmap's size, the txt rows
+    equal to a fresh decode of the same state's eval forward, z-tap
+    launches 2 x the validation volumes (the debug overlays reuse the
+    validation forward) and row gram launches equal to the steps. Reports
+    the peak bytes of that untiled whole-volume forward. Returns (record,
+    launches)."""
+    argv = ["train", "--task", "semi", "--arch", "unet_4", "--order", "zxy",
+            "--data_dir", work, "--root_dir", work, "--device", DEVICE,
+            "--exp_id", "debug", "--num_epochs", "1", "--num_iters",
+            str(DEBUG_STEPS), "--val_intervals", "1", "--debug", "1"]
+    lines, launches, wall = run_cli(argv)
+    steps = {}
+    means, _ = _epoch_lines(lines, steps)
+    cfg = Config(task="semi", arch="unet_4", order="zxy", data_dir=work,
+                 root_dir=work, exp_id="debug").finalize()
+    val = RefineDataset(cfg, "val")
+    model = create_detector(cfg)
+    model.load_state_dict(load_checkpoint(
+        os.path.join(cfg.save_dir, "model_last.pth")), strict=True)
+    model.to(DEVICE).eval()
+    files, rows_equal, bad_png, peaks = {}, {}, [], []
+    for i, name in enumerate(val.names):
+        item = val.val_item(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            hm = sigmoid_clamped(model(torch.from_numpy(item["input"]).to(
+                DEVICE), active_heads=("hm",))["hm"][0, ..., 0])
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        dets = tomo_decode(hm, kernel=cfg.nms, k=cfg.K).cpu().numpy()
+        d, h, w = hm.shape
+        del hm
+        out = os.path.join(cfg.debug_dir, f"epoch1_{name}")
+        zs = range(0, d, DEBUG_EVERY)
+        want = {f"{k}_z{z:03d}.png" for k in ("pred", "gt") for z in zs}
+        want |= {f"det_z{z:03d}.png" for z in zs
+                 if (dets[:, 2].astype(int) == z).any()}
+        want.add(f"{name}.txt")
+        got = set(os.listdir(out))
+        files[name] = {"pngs": len(got) - 1, "det_pngs": sum(
+            f.startswith("det_") for f in got), "as_jax_rule": got == want}
+        for f in sorted(got - {f"{name}.txt"}):
+            try:
+                ihdr = png_chunks(os.path.join(out, f))[0]
+                size = tuple(int.from_bytes(ihdr[1][o:o + 4], "big")
+                             for o in (0, 4))
+                if ihdr[0] != b"IHDR" or size != (w, h):
+                    bad_png.append(f"{name}/{f}: {ihdr[0]!r} {size}")
+            except ValueError as e:
+                bad_png.append(str(e))
+        with open(os.path.join(out, f"{name}.txt")) as fh:
+            rows = fh.read().splitlines()
+        rows_equal[name] = rows == [
+            "\t".join([str(int(r[0]) * cfg.down_ratio), str(int(r[2])),
+                       str(int(r[1]) * cfg.down_ratio), f"{float(r[3]):.4f}"])
+            for r in dets]
+    row = launches["gram_row_stats"]
+    n_steps = steps.get(1, 0)
+    rec = {"phase": "debug", "arch": "unet_4", "steps": n_steps,
+           "launches": launches, "epoch_means": means,
+           "validation_volumes": len(val.names), "files": files,
+           "bad_pngs": bad_png[:5], "txt_rows_equal_fresh_decode": rows_equal,
+           "peak_bytes_whole_volume_forward": max(peaks),
+           "peak_bytes_per_voxel": max(peaks) / float(np.prod(VOLUME)),
+           "cli_wall_s": wall}
+    emit(rec)
+    if not all(v["as_jax_rule"] for v in files.values()) or bad_png:
+        raise RuntimeError(f"debug: files {files}, bad PNGs {bad_png[:5]}")
+    if not all(rows_equal.values()):
+        raise RuntimeError(f"debug: txt rows equal a fresh decode "
+                           f"{rows_equal}")
+    if launches["ztap_dilated_conv"] != 2 * len(val.names):
+        raise RuntimeError(f"debug: {launches['ztap_dilated_conv']} z-tap "
+                           f"launches, {len(val.names)} validation volumes")
+    if n_steps != DEBUG_STEPS or row["fwd"] != n_steps \
+            or row["bwd"] != n_steps:
+        raise RuntimeError(f"debug: {n_steps} steps, row gram {row}")
+    return rec, launches
+
+
+def phase_graft_entry():
+    """``graft_entry.entry()`` on the card: ``fn(model, x)`` launches the
+    z-tap kernel twice; its ``hm`` / ``proj`` within GRAFT_TOL of the
+    largest value of the same module's CPU output (TF32 off), on the
+    entry's zeros input and on a seeded volume of its shape."""
+    import copy
+
+    from cet_pick_tpu_torch.graft_entry import entry
+
+    t0 = time.perf_counter()
+    fn, (model, x) = entry(DEVICE)
+    reset_launches()
+    out = fn(model, x)
+    torch.cuda.synchronize()
+    launches = read_launches()["ztap_dilated_conv"]
+    wall = time.perf_counter() - t0
+    cpu_model = copy.deepcopy(model).cpu()
+    vol = np.random.default_rng(5).standard_normal(x.shape).astype(
+        np.float32)
+    errs = {}
+    for label, inp in (("zeros", x), ("seeded", vol)):
+        card = fn(model, inp) if label == "seeded" else out
+        cpu = fn(cpu_model, inp)
+        for k, v in cpu.items():
+            scale = max(float(v.abs().max()), 1e-30)
+            errs[f"{label}/{k}"] = float(
+                (card[k].cpu() - v).abs().max()) / scale
+    rec = {"phase": "graft_entry", "arch": "unet_4",
+           "input": list(x.shape), "outputs": {k: list(v.shape)
+                                               for k, v in out.items()},
+           "launches": launches, "card_vs_cpu_rel": errs, "tol": GRAFT_TOL,
+           "wall_s": wall}
+    emit(rec)
+    if set(out) != {"hm", "proj"} or launches != 2:
+        raise RuntimeError(f"graft_entry: outputs {sorted(out)}, "
+                           f"{launches} z-tap launches")
+    if not all(e <= GRAFT_TOL for e in errs.values()):
+        raise RuntimeError(f"graft_entry: card != CPU {errs}")
+    return rec
+
 # few-shot picking, blind-spot denoising and the cryoDRGN tools. fewshot
 # runs at its defaults (unet_4, 10x128x128 crops, batch 1, contrastive, 3
 # clusters, lr 1e-3) on the explore recs, FS_EPOCHS epochs of FS_ITERS
@@ -3007,7 +3258,8 @@ def phase_freeze(work):
 # pixels, and the step itself (``step_errors``): each gradient within
 # its bar of its tensor's largest, and each parameter after Adam
 # within 1e-5 of max(1, its tensor's largest) where the CPU's float64
-# gradient lies beyond ADAM_SIGN_RES of that tensor's largest.
+# gradient lies beyond ADAM_SIGN_RES of that tensor's largest and beyond
+# ADAM_EPS_RES.
 FS_EPOCHS = 3
 FS_ITERS = 40
 FS_TOL = 1e-5
@@ -3030,6 +3282,13 @@ STEP_GRAD_TOL = 1e-2
 # are held by the gradient bar alone; elsewhere the two steps share the
 # sign and differ by at most lr eps |dg| / g^2
 ADAM_SIGN_RES = 2e-2
+# ... and only where |g| >> eps (Adam's eps, 1e-8, torch's and optax's): at
+# |g| >= 1e3 eps two gradients that differ by all of g move the weight
+# apart by at most lr 1e-3 = 1e-6, inside FS_TOL. A saturated trained fs
+# state has whole tensors near eps: on an NVIDIA H100 80GB HBM3, 700.00 W,
+# weights 3.1e-5 apart where |g| was ~1e-7, the gradients within their
+# bar, the loss 5.8e-11 apart (PERF.md section 6)
+ADAM_EPS_RES = 1e3 * 1e-8
 # a tensor whose float64 gradient's largest is below this share of the
 # step's largest is zero but for rounding (a bias a BatchNorm follows; the
 # sigma net's layers under its zero-initialized output): its Adam step is
@@ -3076,8 +3335,9 @@ def step_errors(card, cpu, cpu64):
     CPU's f32 and the card's against float64), held within ``grad_bar``:
     STEP_GRAD_TOL plus twice the CPU's worst, the parameters after the
     step of max(1, the tensor's largest) where the float64 gradient lies
-    beyond ADAM_SIGN_RES of its tensor's largest (``param_rel``; the
-    largest difference elsewhere is reported, ``near0_max_abs``), and the
+    beyond ADAM_SIGN_RES of its tensor's largest and beyond ADAM_EPS_RES
+    (``param_rel``; the largest difference elsewhere is reported,
+    ``near0_max_abs``), and the
     BN running statistics of each tensor's largest. A tensor whose float64
     gradient is zero but for rounding (ZERO_GRAD) is listed, and its
     gradient held of the step's largest (``zero_grad_rel``), its Adam step
@@ -3108,7 +3368,8 @@ def step_errors(card, cpu, cpu64):
                               ("grad_rel_card_vs_f64", card["grads"][k],
                                g64)):
                 out[key] = max(out[key], _rel_err(a, b))
-            near0 = g64.abs() <= ADAM_SIGN_RES * scale
+            near0 = (g64.abs() <= ADAM_SIGN_RES * scale) \
+                | (g64.abs() < ADAM_EPS_RES)
             d = (got - want).abs()
             out["param_rel"] = max(out["param_rel"], max0(
                 d[~near0]) / max(1.0, float(want.abs().max())))
@@ -3878,6 +4139,9 @@ def main(argv=None):
         phase_model_3d(arch)
     walls = {}
     t_phase = time.perf_counter()
+    graft_rec = phase_graft_entry()
+    walls["graft_entry"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     phase_explore_model()
     walls["explore_model"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -3890,6 +4154,12 @@ def main(argv=None):
         main_rec = phase_main_path(work, names, planted)
         watch_rec = phase_watch(work, names, main_rec)
         profile_rec = phase_test_profile(work, names)
+        t_phase = time.perf_counter()
+        export_rec = phase_export_import(work, names, profile_rec)
+        walls["export_import"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        _, debug_launches = phase_debug(work, names)
+        walls["debug"] = time.perf_counter() - t_phase
         phase_main_path(work, names, planted, phase="main_path_last",
                         ckpt="model_last.pth", gate=False)
         phase_breakdown(os.path.join(work, "exp", "semi", "default",
@@ -3911,8 +4181,12 @@ def main(argv=None):
         cls_pn = phase_classify_test(work, names, planted,
                                      "train_semiclass_pn", "classify_test",
                                      gate=True)
-        cls_ge = phase_classify_test(work, names, planted, "train_semiclass",
-                                     "classify_test_ge", gate=False)
+        # report-only, one volume (both until the --debug phases): its
+        # greedy NMS visits ~1.2M candidates a volume on the host
+        cls_ge = phase_classify_test(work, names[:1],
+                                     {names[0]: planted[names[0]]},
+                                     "train_semiclass", "classify_test_ge",
+                                     gate=False, listing="one_image.txt")
         _, semi3d_train = phase_train_semi3d(work)
         semi3d_rec = phase_main_path(work, names, planted, "res3d_2",
                                      "semi3d", phase="semi3d_test",
@@ -3961,8 +4235,9 @@ def main(argv=None):
             fn(*fn_args)
             walls[label] = time.perf_counter() - t_phase
         del fs_ds
-    emit({"phase": "walls", "what": "wall s of the exploration phases and "
-          "of fewshot, denoise and the cryoDRGN tools", "wall_s": walls})
+    emit({"phase": "walls", "what": "wall s of the graft entry, "
+          "export_import, debug, the exploration phases and of fewshot, "
+          "denoise and the cryoDRGN tools", "wall_s": walls})
     if CHECK_FAILURES:
         raise RuntimeError(f"failed: {CHECK_FAILURES}")
     kernels = [
@@ -3980,7 +4255,13 @@ def main(argv=None):
                         r["ztap_dilated_conv"]
                         for r in (sc_launches, sc_pn_launches)],
                     launches_in_fewshot=fs_rec["launches"][
-                        "ztap_dilated_conv"]),
+                        "ztap_dilated_conv"],
+                    launches_in_export_import=[
+                        export_rec["launches"][k]
+                        for k in ("imported_dir", "exported_pth")],
+                    launches_in_debug_train=debug_launches[
+                        "ztap_dilated_conv"],
+                    launches_in_graft_entry=graft_rec["launches"]),
         _ztap_entry("ztap_dilated_conv[C=F=128]", ztap["unetw"],
                     unetw_rec["launches"]["ztap_dilated_conv"],
                     unetw_train["ztap_dilated_conv"]),
@@ -3991,7 +4272,9 @@ def main(argv=None):
     kernels += _gram_entries("gram_row_stats", gram["row"],
                              train_launches["gram_row_stats"], 92, 109,
                              {"launches_in_freeze":
-                              freeze_launches["gram_row_stats"]})
+                              freeze_launches["gram_row_stats"],
+                              "launches_in_debug_train":
+                              debug_launches["gram_row_stats"]})
     kernels += _gram_entries("gram_row_stats[C=128]", gram["row_c128"],
                              unetw_train["gram_row_stats"], 92, 109)
     kernels += _gram_entries("gram_row_stats[B=8,semiclass]",

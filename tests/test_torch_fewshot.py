@@ -398,3 +398,39 @@ def test_load_model_before_cold_centres_and_resume(data, tmp_path):
     state3, _, hist4 = F.train_fewshot(cfg3, ds, log_fn=lambda *_: None,
                                        device="cpu")
     assert state3.epoch == 2 and len(hist4) == 1
+
+
+def test_step_check_holds_weights_where_adam_steps_by_sign():
+    """``chip_smoke.step_errors`` (the card's one-step check of the fs and
+    denoise steps) holds a weight after Adam's first step only where that
+    step is lr times the gradient's sign: a gradient near Adam's eps (a
+    saturated trained state) moves the weight by lr g / (|g| + eps), which
+    two f32 gradients within their bar can move apart by more than the
+    weights' bar; a sign flipped where the gradient is large still fails."""
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+
+    lr, eps = 1e-3, 1e-8
+
+    def run(grads):
+        return {"grads": grads, "state": {
+            k: -lr * g / (g.abs() + eps) for k, g in grads.items()}}
+
+    g64 = {"a": torch.tensor([1.0, 0.5], dtype=torch.float64),
+           "b": torch.tensor([1e-6, 3e-8], dtype=torch.float64)}
+    cpu = {k: v.float() for k, v in g64.items()}
+    near_eps = dict(cpu, b=torch.tensor([1e-6, 3.9e-8]))
+    out = chip_smoke.step_errors(run(near_eps), run(cpu), {"grads": g64})
+    assert out["grad_rel"] <= out["grad_bar"]
+    assert out["param_rel"] <= chip_smoke.FS_TOL and out["ok"]
+    assert out["near0_max_abs"] > chip_smoke.FS_TOL  # 4.6e-5, held by the
+    # gradient bar alone
+    flipped = dict(cpu, a=torch.tensor([1.0, -0.5]))
+    out = chip_smoke.step_errors(run(flipped), run(cpu), {"grads": g64})
+    assert out["param_rel"] > 1e-3 and not out["ok"]

@@ -23,6 +23,7 @@ the largest deviation measured on this CPU (PU + contrastive / pn):
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -279,7 +280,18 @@ def test_train_refine_zero_positives_raise(tmp_path):
 
 
 def test_debug_raises(tmp_path):
-    cfg = Config(task="semi", arch="unet_2", debug=1,
+    """``--debug 1`` raised NotImplementedError until utils/debugger.py was
+    ported; now the validation writes its overlays (every 4th z of the
+    6-deep item, and the detection txt) where the error was."""
+    cfg = Config(task="semi", arch="unet_2", debug=1, contrastive=False,
+                 num_epochs=1, val_intervals=1,
                  root_dir=str(tmp_path)).finalize()
-    with pytest.raises(NotImplementedError, match="debugger"):
-        refine.train_refine(cfg, _Batches(), device="cpu")
+    refine.train_refine(cfg, _Batches(), _Batches(), log_fn=lambda *_: None,
+                        device="cpu")
+    out = tmp_path / "exp" / "semi" / "default" / "debug" / "epoch1_v0"
+    names = set(os.listdir(out))
+    assert {"pred_z000.png", "pred_z004.png", "gt_z000.png", "gt_z004.png",
+            "v0.txt"} <= names
+    assert all(n.startswith("det_z") for n in names - {
+        "pred_z000.png", "pred_z004.png", "gt_z000.png", "gt_z004.png",
+        "v0.txt"})
