@@ -181,6 +181,16 @@ def _not_float32(prog, cfg):
     return True
 
 
+def _ranks(cmd, args, cfg, argv, batch_split=True):
+    """Enter or start the command's data-parallel ranks
+    (``parallel/mesh.start_ranks``): None where this process runs the
+    command, else the self-started ranks' exit code."""
+    from cet_pick_tpu_torch.parallel.mesh import start_ranks
+
+    return start_ranks(cfg, args.device, [cmd] + list(argv),
+                       batch_split=batch_split)
+
+
 TRAIN_TASKS = ("semi", "semi3d", "semiclass", "tomo", "cr")
 
 
@@ -205,6 +215,9 @@ def cmd_train(argv):
     for f in (cfg.train_img_txt, cfg.train_coord_txt):
         if not os.path.exists(os.path.join(cfg.data_dir, f)):
             raise FileNotFoundError(os.path.join(cfg.data_dir, f))
+    rc = _ranks("train", args, cfg, argv)
+    if rc is not None:
+        return rc
     from cet_pick_tpu_torch.data.classify_dataset import SemiClassDataset
     from cet_pick_tpu_torch.data.refine_dataset import RefineDataset
     from cet_pick_tpu_torch.infer.detector import set_float32_precision
@@ -244,6 +257,9 @@ def cmd_test(argv):
     if not cfg.load_model:
         # the port's train checkpoint (JAX: the msgpack directory model_last)
         cfg.load_model = os.path.join(cfg.save_dir, "model_last.pth")
+    rc = _ranks("test", args, cfg, argv, batch_split=False)
+    if rc is not None:
+        return rc
     from cet_pick_tpu_torch.infer.detector import run_test
 
     run_test(cfg, device=args.device)
@@ -289,6 +305,9 @@ def cmd_explore(argv):
         return 2
     if not os.path.exists(os.path.join(cfg.data_dir, cfg.train_img_txt)):
         raise FileNotFoundError(os.path.join(cfg.data_dir, cfg.train_img_txt))
+    rc = _ranks("explore", args, cfg, argv)
+    if rc is not None:
+        return rc
     from cet_pick_tpu_torch.data.explore_dataset import ExploreDataset
     from cet_pick_tpu_torch.infer.detector import set_float32_precision
     from cet_pick_tpu_torch.train.explore import prepare_explore, train_explore
@@ -307,7 +326,7 @@ def cmd_explore(argv):
 
 def cmd_moco(argv):
     """MoCo exploration training (cet_pick_tpu/__main__.py:208-229): the
-    explore data in 2d (default), 2d3d or vol mode, one device."""
+    explore data in 2d (default), 2d3d or vol mode."""
     args, cfg = _explore_config(
         "cet_pick_tpu_torch moco",
         Config(task="moco", arch="simsiam2d_18", bbox=36, batch_size=128,
@@ -316,6 +335,9 @@ def cmd_moco(argv):
         return 2
     if not os.path.exists(os.path.join(cfg.data_dir, cfg.train_img_txt)):
         raise FileNotFoundError(os.path.join(cfg.data_dir, cfg.train_img_txt))
+    rc = _ranks("moco", args, cfg, argv)
+    if rc is not None:
+        return rc
     from cet_pick_tpu_torch.data.explore_dataset import ExploreDataset
     from cet_pick_tpu_torch.infer.detector import set_float32_precision
     from cet_pick_tpu_torch.train.moco import prepare_moco, train_moco
@@ -448,6 +470,9 @@ def cmd_scan_finetune(argv):
         return 2
     if not os.path.exists(os.path.join(cfg.data_dir, cfg.test_img_txt)):
         raise FileNotFoundError(os.path.join(cfg.data_dir, cfg.test_img_txt))
+    rc = _ranks("scan-finetune", a, cfg, argv)
+    if rc is not None:
+        return rc
     import numpy as np
 
     from cet_pick_tpu_torch.data.explore_dataset import ExploreDataset
@@ -501,6 +526,10 @@ def cmd_scan_finetune(argv):
         device=device)
     t3 = time.perf_counter()
     consistency = scan_evaluate(assign, nb)
+    from cet_pick_tpu_torch.parallel.dist import is_main
+
+    if not is_main():  # rank 0 writes
+        return None
     np.savez(a.out, label=assign, name=result["name"],
              coords=result["coords"], best_head=best_head)
     # the reference ClusteringModel .pth (JAX: the msgpack directory
@@ -646,6 +675,9 @@ def cmd_watch(argv):
     cfg = config_from_args(args)
     if not cfg.load_model:
         cfg.load_model = os.path.join(cfg.save_dir, "model_last.pth")
+    rc = _ranks("watch", args, cfg, argv, batch_split=False)
+    if rc is not None:
+        return rc
     from cet_pick_tpu_torch.infer.watch import run_watch
 
     run_watch(cfg, args.watch_dir, poll_s=args.poll, once=args.once,
@@ -662,6 +694,9 @@ def cmd_classify(argv):
     for f in (cfg.train_img_txt, cfg.train_coord_txt):
         if not os.path.exists(os.path.join(cfg.data_dir, f)):
             raise FileNotFoundError(os.path.join(cfg.data_dir, f))
+    rc = _ranks("classify", args, cfg, argv)
+    if rc is not None:
+        return rc
     from cet_pick_tpu_torch.data.refine_dataset import RefineDataset
     from cet_pick_tpu_torch.infer.detector import set_float32_precision
     from cet_pick_tpu_torch.train.classify import train_classify
@@ -741,6 +776,9 @@ def cmd_denoise(argv):
         return 2
     # --num_iters (-1 = unset) is the iteration budget here
     num_iters = cfg.num_iters if cfg.num_iters > 0 else 2000
+    rc = _ranks("denoise", args, cfg, argv)
+    if rc is not None:
+        return rc
     from cet_pick_tpu_torch.infer.detector import set_float32_precision
     from cet_pick_tpu_torch.io.coords import read_image_list
     from cet_pick_tpu_torch.io.loader import load_tomos_from_list
@@ -777,7 +815,9 @@ def cmd_denoise(argv):
         ck = os.path.join(cfg.save_dir, "model_last.pth")
         save_denoise_checkpoint(ck, state, cfg)
         log(f"saved denoiser to {ck}")
-    if args.write_denoised:
+    from cet_pick_tpu_torch.parallel.dist import is_main
+
+    if args.write_denoised and is_main():
         for name, vol in images.items():
             t0 = time.perf_counter()
             den = denoise_volume(state, vol)
@@ -1209,6 +1249,9 @@ def main(argv=None):
         print(f"unknown command {cmd!r}; available: {', '.join(COMMANDS)}")
         return 2
     rc = COMMANDS[cmd](argv[1:])
+    from cet_pick_tpu_torch.parallel.mesh import finish_ranks
+
+    finish_ranks()
     return 0 if rc is None else rc
 
 

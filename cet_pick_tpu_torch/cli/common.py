@@ -78,8 +78,14 @@ FLAG_GROUPS = (
                     "only `model_last` / `model_best`",
         "contrastive": "train refinement with the debiased contrastive "
                        "branch (the reference's `--contrastive`)",
-        "mesh_shape": "multi-device layout of the JAX package; the port "
-                      "runs on one device and ignores it so far",
+        "mesh_shape": "data-parallel ranks (the product of the dims): "
+                      "train, classify, explore, moco, scan-finetune and "
+                      "denoise split each global batch over them, test and "
+                      "watch split each volume's tiles; started alone, the "
+                      "command starts that many ranks itself (one per "
+                      "visible card, gloo where ranks share a card); "
+                      "under torchrun it must match the world size; "
+                      "fewshot ignores it",
     }),
     ("Refinement loss", {
         "bbox": "particle box size in pixels; sets the crop size and the "

@@ -42,6 +42,7 @@ from cet_pick_tpu_torch.io.mrc import write_mrc
 from cet_pick_tpu_torch.models.convert import load_checkpoint
 from cet_pick_tpu_torch.models.detector import create_detector
 from cet_pick_tpu_torch.ops.decode import tomo_decode
+from cet_pick_tpu_torch.parallel import dist as D
 from cet_pick_tpu_torch.utils.post_process import (
     fiber_postprocess,
     group_dets_by_z,
@@ -52,13 +53,14 @@ from cet_pick_tpu_torch.utils.profiling import annotate, maybe_trace
 
 def resolve_device(device) -> torch.device:
     """``torch.device`` for an entry point; raises when CUDA is asked for
-    and none is present (there is no silent CPU run)."""
+    and none is present (there is no silent CPU run). Under a process group
+    ``cuda`` is the rank's own card (``parallel/dist.rank_device``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' was asked for but torch sees no CUDA device; "
             "pass --device cpu (device='cpu') to run on the CPU")
-    return device
+    return D.rank_device(device)
 
 
 def set_float32_precision(dtype: str):
@@ -76,6 +78,10 @@ class TomoDetector:
     ``state_dict``: the model's weights; read from ``config.load_model``
     (a ``.pth``) when None. ``xy_budget``: activation budget of the memory
     envelope in bytes (see infer/tiled.py); None sizes it from the device.
+    Under a process group of several ranks (``test`` / ``watch`` with
+    ``--mesh_shape``) every rank holds the model on its own card, the
+    tiled forward's plan is split over the ranks and each rank gets the
+    stitched heatmap (infer/tiled.py); rank 0 alone writes.
     """
 
     def __init__(self, config, state_dict=None, tile_z=None, device="cuda",
@@ -323,7 +329,10 @@ def run_test(config, out_dir=None, device="cuda"):
     thread overlaps tomogram i+1's load + device copy with tomogram i's
     forward, and a writer thread overlaps tomogram i-1's heatmap fetch +
     post-process + file writes with it too. ``--profile_dir`` traces the
-    whole run (detector.py:374-401). Returns {name: stage times}."""
+    whole run (detector.py:374-401). Under a process group every rank
+    loads each volume and runs its share of the forward; rank 0 alone
+    writes and reports. Returns {name: stage times} (empty on the other
+    ranks)."""
     set_float32_precision(config.dtype)
     il = read_image_list(os.path.join(config.data_dir, config.test_img_txt))
     det = TomoDetector(config, device=device)
@@ -358,7 +367,8 @@ def run_test(config, out_dir=None, device="cuda"):
                 with annotate(f"volume {name}"):
                     hm_dev, dets, t0, t_net = det._compute(v_dev, lo=lo,
                                                            hi=hi)
-                q.put((name, hm_dev, dets, t0, t_net))
+                if D.is_main():
+                    q.put((name, hm_dev, dets, t0, t_net))
                 if errs:
                     break
     finally:

@@ -1,6 +1,5 @@
 """Whole-volume heatmap inference, tiled along z (and xy) with halo overlap
-— port of ``cet_pick_tpu/infer/tiled.py`` (the mesh/sharding branches are
-not ported).
+— port of ``cet_pick_tpu/infer/tiled.py``.
 
 The reference pushes entire volumes through the net in one forward
 (reference: cet_pick/test.py:77-85, detectors/tomo_det.py:23-40). Here
@@ -16,6 +15,14 @@ Windows near the z borders are shifted INWARD (start clamped to
 [0, d - win]), never zero-padded, so every core slice has >= halo slices of
 real context or sits at the true border, where the convolutions' own zero
 padding applies — exactly as in a full-volume forward.
+
+Ranks: under a process group of several ranks (``test`` / ``watch`` with
+``--mesh_shape``, ``parallel/``) the same plan is split over the ranks: the xy tiles in contiguous blocks when there are several, else the
+z windows. Each rank runs its own through the same model (one fused
+forward of its windows), and every core is then broadcast from its rank,
+so each rank stitches the single-process heatmap. JAX instead shards H
+over the mesh with XLA's halo exchanges (tiled.py:120-145); the plan's
+halos already make every core exact, so no exchange is needed.
 
 Memory envelope: when the fused window batch would exceed the activation
 budget, xy tiles itself with the full-network halo. The budget comes from
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from cet_pick_tpu_torch.ops.nms import sigmoid_clamped
+from cet_pick_tpu_torch.parallel import dist as D
 
 Z_HALO = 3  # z receptive-field radius of the 3D head (unet_small.py:39-61)
 
@@ -104,6 +112,9 @@ class TiledHeatmapInference:
     def __init__(self, model, tile_z: int = 64, halo: int = Z_HALO,
                  tile_xy=None, tta: bool = False, xy_budget=None):
         self.model = model.eval()
+        # split the plan over the process group's ranks (module docstring);
+        # every rank must then run the same calls
+        self.split = D.world() > 1
         self.device = next(model.parameters()).device
         # a model with ``untiled`` set (the 3D detectors: GroupNorm spans
         # the volume) runs one forward over the whole volume; the memory
@@ -283,16 +294,38 @@ class TiledHeatmapInference:
             return s, slice((a0 - s) // dn, (a1 - s) // dn)
 
         volume = self._put_volume(volume)
-        rows = []
-        for he in hp:
-            sy, ysl = core(he)
-            cols = []
-            for we in wp:
-                sx, xsl = core(we)
-                hm = z_forward(volume[:, sy:sy + hwin, sx:sx + wwin])
-                cols.append(hm[:, ysl, xsl])
-            rows.append(torch.cat(cols, dim=2))
+        tiles = [(he, we) for he in hp for we in wp]
+
+        def tile_core(he, we):
+            (sy, ysl), (sx, xsl) = core(he), core(we)
+            return z_forward(volume[:, sy:sy + hwin, sx:sx + wwin])[:, ysl,
+                                                                    xsl]
+
+        split, self.split = self.split, False  # z stays whole in a tile
+        try:
+            cores = self._split_map(tile_core, tiles, split)
+        finally:
+            self.split = split
+        rows = [torch.cat(cores[i:i + len(wp)], dim=2)
+                for i in range(0, len(cores), len(wp))]
         return torch.cat(rows, dim=1)
+
+    def _split_map(self, fn, items, split):
+        """``[fn(*item) for item in items]``; with ``split`` each rank
+        computes its block of the items, then each result is broadcast
+        from its rank."""
+        if not split:
+            return [fn(*it) for it in items]
+        n = len(items)
+        return self._gather({i: fn(*it) for i, it in enumerate(items)
+                             if D.owner(i, n) == D.rank()}, n)
+
+    def _gather(self, mine, n):
+        """The ``n`` cores in order on every rank: ``mine`` ({index: core})
+        computed here, each other broadcast from its rank
+        (``parallel/dist.share``)."""
+        return [D.share(mine.get(i), D.owner(i, n), 3, device=self.device)
+                for i in range(n)]
 
     @torch.inference_mode()
     def fused(self, volume, lo: float = 0.0, hi: float = 1.0):
@@ -322,10 +355,18 @@ class TiledHeatmapInference:
             return self._forward_z(volume, lo=lo, hi=hi)
         plan, win = self._window_plan(d)
         volume = self._put_volume(volume)
-        windows = torch.stack([volume[s:s + win] for s, _, _ in plan])
-        hm = self._hm_probs(self._dequant(windows, lo, hi))  # (T, win, H', W')
-        return torch.cat([hm[i, c0:c1] for i, (_, c0, c1) in enumerate(plan)],
-                         dim=0)
+        n = len(plan)
+        ids = [i for i in range(n)
+               if not self.split or D.owner(i, n) == D.rank()]
+        cores = {}
+        if ids:
+            windows = torch.stack([volume[plan[i][0]:plan[i][0] + win]
+                                   for i in ids])
+            hm = self._hm_probs(self._dequant(windows, lo, hi))  # (T, win, ..)
+            cores = {i: hm[j, plan[i][1]:plan[i][2]]
+                     for j, i in enumerate(ids)}
+        return torch.cat(self._gather(cores, n) if self.split
+                         else [cores[i] for i in range(n)], dim=0)
 
     @torch.inference_mode()
     def __call__(self, volume, lo: float = 0.0, hi: float = 1.0):
@@ -352,9 +393,9 @@ class TiledHeatmapInference:
         plan, win = self._window_plan(d)
         if d <= win:
             # a single window covers the volume; exact by construction
-            return self._tile_forward(volume, lo, hi)
-        cores = []
-        for s, core_lo, core_hi in plan:
-            hm = self._tile_forward(volume[s:s + win], lo, hi)
-            cores.append(hm[core_lo:core_hi])
+            plan = ((0, 0, d),)
+        cores = self._split_map(
+            lambda s, c0, c1: self._tile_forward(volume[s:s + win], lo,
+                                                 hi)[c0:c1],
+            plan, self.split)
         return torch.cat(cores, dim=0)

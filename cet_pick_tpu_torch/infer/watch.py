@@ -26,6 +26,10 @@ Service semantics (watch.py:12-33):
   producer thread ahead of the forward (``stream_quantized_volumes``), and
   a writer thread fetches the heatmap and writes the files behind the next
   volume's forward.
+* **Ranks.** Under ``--mesh_shape`` with a process group, rank 0 alone
+  polls, claims, writes and keeps the manifest; it broadcasts each round's
+  claimed files, and every rank loads them and runs its share of each
+  forward (``TomoDetector``'s split plan).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from cet_pick_tpu_torch.infer.detector import (
     stream_quantized_volumes,
     warm_from_header,
 )
+from cet_pick_tpu_torch.parallel import dist as D
 from cet_pick_tpu_torch.utils.profiling import annotate
 
 MANIFEST = ".watch_manifest.tsv"
@@ -147,7 +152,9 @@ def process_files(det, config, paths, out_dir, warm=False, log_fn=print):
                         with annotate(f"volume {name}"):
                             hm_dev, dets, t0, t_net = det._compute(
                                 v_dev, lo=lo, hi=hi)
-                        q.put((name, path, hm_dev, dets, t0, t_net, t_wall))
+                        if D.is_main():
+                            q.put((name, path, hm_dev, dets, t0, t_net,
+                                   t_wall))
                         continue
                     except Exception as e:  # noqa: BLE001
                         if _device_fault(e):
@@ -180,17 +187,20 @@ def run_watch(config, watch_dir: str, out_dir: Optional[str] = None,
     log_fn(f"watch: serving {watch_dir} -> {out_dir} "
            f"({len(done)} already in manifest)")
     while True:
-        stats = _scan(watch_dir)
+        stats = _scan(watch_dir) if D.is_main() else {}
         fresh = {p: s for p, s in stats.items() if done.get(p) != s}
         if once:
             ready = sorted(fresh)
         else:
             ready = sorted(p for p, s in fresh.items() if pending.get(p) == s)
         pending = fresh
+        ready = D.broadcast_object(ready)  # rank 0 claims for every rank
         if ready:
             res = process_files(det, config, ready, out_dir,
                                 warm=first_batch, log_fn=log_fn)
             first_batch = False
+            if not D.is_main():
+                res = {}
             # claim order, not completion order: the manifest's rows stay
             # deterministic
             for p in (p for p in ready if p in res):

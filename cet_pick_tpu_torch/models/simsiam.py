@@ -47,6 +47,7 @@ from cet_pick_tpu_torch.models.conv3d import Conv3d
 from cet_pick_tpu_torch.models.flax_init import flax_init_
 from cet_pick_tpu_torch.models.unet import BatchNorm2d
 from cet_pick_tpu_torch.ops.augment import vol_out_size
+from cet_pick_tpu_torch.parallel.dist import is_synced, sync_batch_norm
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -54,7 +55,8 @@ class BatchNorm1d(nn.BatchNorm1d):
     updates ``ra = 0.9 * ra + 0.1 * stat`` with the *biased* batch variance,
     as ``models/unet.BatchNorm2d`` does for 2D maps (torch's own update
     uses the unbiased one). Eval mode and the state-dict keys are the stock
-    module's."""
+    module's; a data-parallel step takes the global batch's statistics
+    (``parallel/dist.sync_batch_norm``)."""
 
     def __init__(self, num_features: int, affine: bool = True):
         super().__init__(num_features, eps=1e-5, momentum=0.1, affine=affine)
@@ -62,6 +64,8 @@ class BatchNorm1d(nn.BatchNorm1d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if is_synced():
+            return sync_batch_norm(self, x, (0,))
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=0, correction=0)
             self.running_mean.lerp_(mean, self.momentum)
@@ -127,6 +131,8 @@ class BatchNorm3d(nn.BatchNorm3d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if is_synced():
+            return sync_batch_norm(self, x, (0, 2, 3, 4))
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), correction=0)
             self.running_mean.lerp_(mean, self.momentum)

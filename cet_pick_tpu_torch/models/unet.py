@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cet_pick_tpu_torch.parallel.dist import is_synced, sync_batch_norm
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that keeps its running statistics as flax's
@@ -29,7 +31,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     batch variance; torch's own update uses the unbiased n/(n-1) one. The
     momentum (0.1, torch's convention), eps, parameters and buffers
     (``num_batches_tracked`` included) are the stock module's, so reference
-    ``.pth`` files load with ``strict=True``. Eval mode is unchanged."""
+    ``.pth`` files load with ``strict=True``. Eval mode is unchanged. In a
+    data-parallel step the statistics are the global batch's
+    (``parallel/dist.sync_batch_norm``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=0.1)
@@ -37,6 +41,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if is_synced():
+            return sync_batch_norm(self, x, (0, 2, 3))
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)

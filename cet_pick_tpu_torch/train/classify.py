@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from cet_pick_tpu_torch.ops.nms import sigmoid_clamped
+from cet_pick_tpu_torch.parallel.dist import global_sums
 from cet_pick_tpu_torch.train.refine import (
     _forward_pair,
     optimizer_step,
@@ -29,7 +30,10 @@ from cet_pick_tpu_torch.train.state import AsyncCheckpointer, checkpoint_payload
 
 
 def _safe_mean(x, n):
-    return x.sum() / torch.clamp(n, min=1.0)
+    """``Σx / max(n, 1)`` with both taken over the global batch (every
+    rank's rows in a data-parallel step, ``parallel/dist``)."""
+    total, n = global_sums(x.sum(), n)
+    return total / torch.clamp(n, min=1.0)
 
 
 def bce_loss(pred, gt):
@@ -59,9 +63,7 @@ def make_classify_train_step(model, config):
                          labeled.sum().float())
         return loss, {"loss": loss, "acc": acc}
 
-    train_step = optimizer_step(model, loss_fn)
-    train_step.loss_fn = loss_fn
-    return train_step
+    return optimizer_step(model, loss_fn)
 
 
 def train_classify(config, dataset, num_epochs=None, log_fn=print,

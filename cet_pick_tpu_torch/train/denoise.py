@@ -15,8 +15,10 @@ learning rate of utils/utils.py:31-56:
 * optimizer: optax's ``chain(clip_by_global_norm(5.0), adam(lr))`` over both
   nets together, the learning rate set every step from the ramp
 
-The step runs on one device; JAX wraps it in ``auto_dp_step``
-(denoise.py:217-221). Checkpoints are ``.pth`` files (``params_dn``,
+Under a process group the step is data-parallel, as JAX's
+``auto_dp_step`` makes it (denoise.py:217-221): each rank takes its rows of
+the global batch, and the gradients are averaged over the ranks before the
+global-norm clip, so the clip sees the global gradient. Checkpoints are ``.pth`` files (``params_dn``,
 ``params_sigma``, the Adam state, ``step``); JAX's ``denoise.msgpack``
 directories load too.
 """
@@ -31,6 +33,7 @@ import torch
 from cet_pick_tpu_torch.data.prefetch import PrefetchIterator
 from cet_pick_tpu_torch.infer.detector import resolve_device
 from cet_pick_tpu_torch.models.denoise import create_denoise_models
+from cet_pick_tpu_torch.parallel import dist as D
 from cet_pick_tpu_torch.train.metrics import LaggedMetrics
 from cet_pick_tpu_torch.train.state import (
     ADAM_BETAS,
@@ -135,9 +138,12 @@ def denoise_train_step(state, noisy, lr):
     scalars."""
     for m in state.models.values():
         m.train()
-    loss, metrics = denoise_loss(state.models, noisy)
-    state.optimizer.zero_grad(set_to_none=False)
-    loss.backward()
+    with D.synced():
+        loss, metrics = denoise_loss(state.models, noisy)
+        state.optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        D.allreduce_grads(state.params)
+        metrics = D.mean_metrics(metrics)
     clip_by_global_norm_([p.grad for p in state.params])
     for group in state.optimizer.param_groups:
         group["lr"] = float(lr)  # a Python float: .pth files hold it
@@ -218,7 +224,9 @@ def train_denoise(config, dataset, num_iters=200, ramp_up=0.2, ramp_down=0.7,
             log_fn(f"iter {n}: " + " ".join(
                 f"{k}={v:.5f}" for k, v in m.items()))
 
-    batches = (dataset.sample_batch(rng, config.batch_size)
+    D.check_batch_split(config.batch_size)
+    # every rank draws the global batch and keeps its rows
+    batches = (D.local_rows(dataset.sample_batch(rng, config.batch_size))
                for _ in range(num_iters))
     with AsyncCheckpointer() as ckpt, \
             PrefetchIterator(batches, depth=2, device=device) as prefetched:

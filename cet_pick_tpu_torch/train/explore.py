@@ -41,6 +41,7 @@ from cet_pick_tpu_torch.ops.augment import (
     simsiam_augment_3d,
     simsiam_augment_vol,
 )
+from cet_pick_tpu_torch.parallel.dist import local_rows
 from cet_pick_tpu_torch.train.losses import simsiam_loss
 from cet_pick_tpu_torch.train.refine import optimizer_step, run_epoch
 from cet_pick_tpu_torch.train.state import (
@@ -112,7 +113,9 @@ def make_simsiam_train_step(model, config, norm_mean, norm_std, gen):
     / ``norm_std`` are the dataset's per-channel statistics as (C,) device
     tensors (unused in vol mode). The stages are exposed for timing:
     ``train_step.augment(batch) -> (v1, v2)`` and
-    ``train_step.forward_loss(v1, v2)``."""
+    ``train_step.forward_loss(v1, v2)``. Under a process group ``batch``
+    is the global batch: the augments draw for all of it, as one process
+    would, and each rank forwards its rows of the views."""
     augment = explore_augment(model.mode)
 
     def augment_views(batch):
@@ -128,8 +131,13 @@ def make_simsiam_train_step(model, config, norm_mean, norm_std, gen):
                                  ret2["proj"])
         return loss, {"loss": loss, "std": std}
 
-    train_step = optimizer_step(
-        model, lambda batch: forward_loss(*augment_views(batch)))
+    def loss_fn(batch):
+        # the draws are the global batch's (every rank holds it whole);
+        # each rank keeps its rows of the views
+        v1, v2 = augment_views(batch)
+        return forward_loss(local_rows(v1), local_rows(v2))
+
+    train_step = optimizer_step(model, loss_fn)
     train_step.augment = augment_views
     train_step.forward_loss = forward_loss
     return train_step
@@ -210,7 +218,7 @@ def train_explore(config, dataset, prepared, log_fn=print):
             history.append(run_epoch(
                 with_warmup(train_step, config, epoch, total_batches),
                 state, dataset, rng, config, epoch, device, log_fn,
-                lr=simsiam_lr_at_epoch(config, epoch)))
+                lr=simsiam_lr_at_epoch(config, epoch), shard=False))
             snap = ckpt.save(os.path.join(config.save_dir, "model_last.pth"),
                              checkpoint_payload(state), config)
             if (config.save_all and config.val_intervals > 0

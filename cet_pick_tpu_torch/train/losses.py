@@ -27,6 +27,13 @@ O(M C) and computed outside the kernels, as JAX does (losses.py:329-334).
 
 Data-dependent branches of the reference become ``torch.where`` with safe
 denominators, as in JAX.
+
+In a data-parallel step (``parallel/dist.synced``) each rank holds its rows
+of the global batch. Every batch-wide count and sum that normalizes a loss
+or decides a branch (the focal and PU losses, the GE count grid, the
+SimSiam std monitor) is taken over all ranks by ``global_sums``; the
+per-sample contrastive and consistency terms stay local means, whose
+average over the equal shards is the global mean.
 """
 
 from __future__ import annotations
@@ -40,6 +47,12 @@ from cet_pick_tpu_torch.ops.gram import (
     gram_logit_stats_plain,
     gram_row_stats,
     gram_row_stats_plain,
+)
+from cet_pick_tpu_torch.parallel.dist import (
+    gather_rows,
+    global_count,
+    global_sums,
+    is_synced,
 )
 
 
@@ -66,9 +79,8 @@ def focal_loss(pred, gt):
     pos_loss = torch.log(pred) * torch.pow(1 - pred, 2) * pos
     neg_loss = torch.log(1 - pred) * torch.pow(pred, 2) * neg_weights * neg
 
-    num_pos = pos.sum()
-    pos_sum = pos_loss.sum()
-    neg_sum = neg_loss.sum()
+    num_pos, pos_sum, neg_sum = global_sums(pos.sum(), pos_loss.sum(),
+                                            neg_loss.sum())
     return torch.where(num_pos == 0, -neg_sum,
                        -(pos_sum + neg_sum) / torch.clamp(num_pos, min=1.0))
 
@@ -88,36 +100,40 @@ def pu_focal_loss(pred, gt, tau=0.1, beta=0.0):
     soft_pos = (labeled == other).to(dt)  # labeled negatives
     unlabeled = (gt == -1).to(dt)
 
-    num_pos = true_pos.sum()
-    num_unlabeled = unlabeled.sum()
-    num_soft = soft_pos.sum()
-
     soft_pow_w = torch.pow(1 - gt, 4)
     soft_pow_neg_w = torch.pow(gt, 4)
 
     pos_loss = torch.log(pred) * torch.pow(1 - pred, 2) * true_pos
     soft_pos_loss = (torch.log(1 - pred) * torch.pow(pred, 2) * soft_pow_w
                      * soft_pos)
-    pos_loss_tot = torch.where(
-        num_soft > 0,
-        -_safe_div(pos_loss.sum(), num_pos)
-        - _safe_div(soft_pos_loss.sum(), num_soft),
-        -_safe_div(pos_loss.sum(), num_pos),
-    )
-    pos_risk = pos_loss_tot * tau
-
     neg_pos_loss = torch.log(1 - pred) * torch.pow(pred, 2) * true_pos
     neg_soft_pos_loss = (torch.log(pred) * torch.pow(1 - pred, 2)
                          * soft_pow_neg_w * soft_pos)
+    unlabeled_neg = torch.pow(pred, 2) * torch.log(1 - pred) * unlabeled
+
+    # every count and sum is the global batch's: the nnPU branch below is
+    # decided on them
+    (num_pos, num_unlabeled, num_soft, pos_sum, soft_pos_sum, neg_pos_sum,
+     neg_soft_pos_sum, unlabeled_neg_sum) = global_sums(
+        true_pos.sum(), unlabeled.sum(), soft_pos.sum(), pos_loss.sum(),
+        soft_pos_loss.sum(), neg_pos_loss.sum(), neg_soft_pos_loss.sum(),
+        unlabeled_neg.sum())
+
+    pos_loss_tot = torch.where(
+        num_soft > 0,
+        -_safe_div(pos_sum, num_pos) - _safe_div(soft_pos_sum, num_soft),
+        -_safe_div(pos_sum, num_pos),
+    )
+    pos_risk = pos_loss_tot * tau
+
     neg_pos_risk = torch.where(
         num_soft > 0,
-        -_safe_div(neg_pos_loss.sum(), num_pos)
-        - _safe_div(neg_soft_pos_loss.sum(), num_soft),
-        -_safe_div(neg_pos_loss.sum(), num_pos),
+        -_safe_div(neg_pos_sum, num_pos)
+        - _safe_div(neg_soft_pos_sum, num_soft),
+        -_safe_div(neg_pos_sum, num_pos),
     )
 
-    unlabeled_neg = torch.pow(pred, 2) * torch.log(1 - pred) * unlabeled
-    unlabeled_risk = -_safe_div(unlabeled_neg.sum(), num_unlabeled)
+    unlabeled_risk = -_safe_div(unlabeled_neg_sum, num_unlabeled)
 
     neg_risk_total = -tau * neg_pos_risk + unlabeled_risk
     loss = torch.where(neg_risk_total < -beta, pos_risk,
@@ -135,12 +151,11 @@ def pu_ge_loss(pred, gt, tau=0.1, slack=1.0, entropy_penalty=0.0):
     classifier_loss = focal_loss(pred, gt)
 
     unl = (gt == -1).to(pred.dtype)
-    n_unl = unl.sum()
     p = pred * unl
-    q_mu = p.sum()
-    q_var = (p * (1 - pred) * unl).sum()
+    n_unl, q_mu, q_var = global_sums(unl.sum(), p.sum(),
+                                     (p * (1 - pred) * unl).sum())
 
-    v = pred.shape[0]
+    v = global_count(pred.shape[0])  # the global batch's count grid
     k = torch.arange(0, v + 1, dtype=pred.dtype, device=pred.device)
     valid = k <= n_unl
     q_logits = torch.where(valid, -0.5 * (q_mu - k) ** 2 / (q_var + 1e-7),
@@ -333,4 +348,6 @@ def simsiam_loss(p1, z1, p2, z2):
 
     z1, z2 = z1.detach(), z2.detach()
     loss = -(_cos(p1, z2) + _cos(p2, z1)) / 2
+    if is_synced():  # the global batch's std
+        z1 = gather_rows(z1)
     return loss, _unit(z1).std(dim=0, correction=0).mean()

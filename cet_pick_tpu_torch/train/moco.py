@@ -22,7 +22,8 @@ set to the query's pre-step ones; the keys enqueued in float32.
 
 Intended deviations from JAX: the queue's initial draws come from a
 ``torch.Generator`` seeded with ``seed`` (JAX: ``fold_in(PRNGKey(seed),
-1)``), and the step runs on one device (JAX wraps it in ``auto_dp_step``).
+1)``). Under a process group the step is data-parallel as JAX's
+``auto_dp_step`` makes it (:func:`moco_update`).
 Checkpoints are ``model_last.pth``: ``state_dict`` holds ``encoder_q.*``,
 ``encoder_k.*``, ``queue`` and ``queue_ptr`` (the reference MoCo wrapper's
 names), beside ``epoch``, ``step`` and ``optimizer``, with ``opt.json``.
@@ -48,6 +49,7 @@ from cet_pick_tpu_torch.models.convert import (
     simsiam_state_dict_from_jax,
 )
 from cet_pick_tpu_torch.models.simsiam import create_simsiam
+from cet_pick_tpu_torch.parallel import dist as D
 from cet_pick_tpu_torch.train.explore import (
     explore_augment,
     norm_stats,
@@ -108,11 +110,19 @@ def embed_proj(model, x):
 
 
 def moco_update(state: MoCoState, v_q, v_k, m=MOMENTUM,
-                temperature=TEMPERATURE):
+                temperature=TEMPERATURE, blocks=1):
     """One MoCo step on augmented views ``v_q`` / ``v_k`` (moco.py:
     166-206): key EMA, key forward, query forward + InfoNCE, SGD, key BN
     buffers, enqueue. Returns the metrics (``loss``, ``acc``) as device
-    scalars."""
+    scalars.
+
+    Under a process group the views are this rank's rows of each of
+    ``blocks`` equal blocks (2 under ``--moco_symmetric``: [v1, v2]): the
+    query's BatchNorm takes the global moments, the gradients are averaged
+    over the ranks, and every rank enqueues the keys of all ranks, gathered
+    block by block in rank order — the single-process queue. The key
+    encoder runs in eval mode, and its EMA and buffers copy the replicated
+    query, so it stays the same on every rank."""
     q_model, k_model = state.model, state.key_model
     pre_bn = {n: b.detach().clone() for n, b in q_model.named_buffers()}
     with torch.no_grad():
@@ -122,25 +132,31 @@ def moco_update(state: MoCoState, v_q, v_k, m=MOMENTUM,
         k_model.eval()
         keys = _unit(embed_proj(k_model, v_k))
     q_model.train()
-    q = _unit(embed_proj(q_model, v_q))
-    l_pos = (q * keys).sum(dim=1, keepdim=True)
-    l_neg = q @ state.queue.T
-    logits = torch.cat([l_pos, l_neg], dim=1) / temperature
-    loss = (-logits[:, 0] + torch.logsumexp(logits, dim=1)).mean()
-    acc = (logits.argmax(dim=1) == 0).float().mean()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with D.synced():
+        q = _unit(embed_proj(q_model, v_q))
+        l_pos = (q * keys).sum(dim=1, keepdim=True)
+        l_neg = q @ state.queue.T
+        logits = torch.cat([l_pos, l_neg], dim=1) / temperature
+        loss = (-logits[:, 0] + torch.logsumexp(logits, dim=1)).mean()
+        acc = (logits.argmax(dim=1) == 0).float().mean()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        D.allreduce_grads(q_model.parameters())
+        metrics = D.mean_metrics({"loss": loss.detach(), "acc": acc})
     state.optimizer.step()
     state.step += 1
     with torch.no_grad():
         # the key's BN statistics: the query's from before this step
         for n, b in k_model.named_buffers():
             b.copy_(pre_bn[n])
+        if D.world() > 1:  # every rank's keys, block by block
+            keys = torch.cat([D.gather_rows(k)
+                              for k in keys.chunk(blocks)])
         r, bsz = state.queue.shape[0], keys.shape[0]
         state.queue[state.queue_ptr:state.queue_ptr + bsz] = \
             keys.to(state.queue.dtype)
         state.queue_ptr = (state.queue_ptr + bsz) % r
-    return {"loss": loss.detach(), "acc": acc}
+    return metrics
 
 
 def make_moco_train_step(config, norm_mean, norm_std, gen):
@@ -148,21 +164,24 @@ def make_moco_train_step(config, norm_mean, norm_std, gen):
     batch's device from ``gen`` (the anchor strong, the aug
     ``strong=--moco_symmetric``), then :func:`moco_update`; under
     ``--moco_symmetric`` queries [v1, v2] against keys [v2, v1]
-    (moco.py:148-171)."""
+    (moco.py:148-171). Under a process group ``batch`` is the global
+    batch: the augments draw for all of it and each rank keeps its rows
+    of each view."""
     symmetric = bool(config.moco_symmetric)
 
     def views(batch, mode):
         augment = explore_augment(mode)
-        v_q = augment(batch["anchor"], gen, norm_mean, norm_std, config.bbox,
-                      strong=True)
-        v_k = augment(batch["aug"], gen, norm_mean, norm_std, config.bbox,
-                      strong=symmetric)
+        v_q = D.local_rows(augment(batch["anchor"], gen, norm_mean, norm_std,
+                                 config.bbox, strong=True))
+        v_k = D.local_rows(augment(batch["aug"], gen, norm_mean, norm_std,
+                                 config.bbox, strong=symmetric))
         if symmetric:
             v_q, v_k = torch.cat([v_q, v_k]), torch.cat([v_k, v_q])
         return v_q, v_k
 
     def train_step(state, batch):
-        return moco_update(state, *views(batch, state.model.mode))
+        return moco_update(state, *views(batch, state.model.mode),
+                           blocks=2 if symmetric else 1)
 
     return train_step
 
@@ -268,7 +287,7 @@ def train_moco(config, dataset, prepared, log_fn=print):
             history.append(run_epoch(
                 with_warmup(train_step, config, epoch, total_batches),
                 state, dataset, rng, config, epoch, device, log_fn,
-                lr=simsiam_lr_at_epoch(config, epoch)))
+                lr=simsiam_lr_at_epoch(config, epoch), shard=False))
             if not config.save_dir:
                 continue
             snap = ckpt.save(os.path.join(config.save_dir, "model_last.pth"),

@@ -17,9 +17,10 @@ batch as a leading axis (train/losses.py); on the card their gram row
 statistics run the CUDA kernels of ``ops/gram.py``, forward and backward.
 
 JAX's ``prepare_refine`` overlaps XLA compilation with the dataset build on
-a thread, warms the step on a zeros batch and places a data-parallel mesh;
-none of that exists for an eager PyTorch step, and only its model / state /
-checkpoint part is ported here.
+a thread and warms the step on a zeros batch; neither exists for an eager
+PyTorch step. Its data-parallel mesh is a process group here
+(``parallel/``): :func:`optimizer_step` averages the gradients over the
+ranks and :func:`run_epoch` hands each rank its rows.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from cet_pick_tpu_torch.data.prefetch import PrefetchIterator
 from cet_pick_tpu_torch.infer.detector import resolve_device
 from cet_pick_tpu_torch.models.detector import create_detector
 from cet_pick_tpu_torch.ops.nms import sigmoid_clamped
+from cet_pick_tpu_torch.parallel import dist as D
 from cet_pick_tpu_torch.train import losses as L
 from cet_pick_tpu_torch.train.metrics import LaggedMetrics
 from cet_pick_tpu_torch.train.state import (
@@ -91,10 +93,10 @@ def make_train_step(model, config):
 
         if use_pn:
             hm_loss = L.focal_loss(hm, gt)
-            num_pos = (gt == 1).sum()
+            num_pos = D.global_sum((gt == 1).sum())
         elif use_ge:
             hm_loss = L.pu_ge_loss(hm, gt, tau=tau)
-            num_pos = (gt == 1).sum()
+            num_pos = D.global_sum((gt == 1).sum())
         else:
             hm_loss, num_pos = L.pu_focal_loss(hm, gt, tau=tau)
 
@@ -129,25 +131,35 @@ def make_train_step(model, config):
         metrics["loss"] = loss
         return loss, metrics
 
-    train_step = optimizer_step(model, loss_fn)
-    train_step.loss_fn = loss_fn  # the forward half, for timing by stage
-    return train_step
+    return optimizer_step(model, loss_fn)
 
 
 def optimizer_step(model, loss_fn):
     """``train_step(state, batch)``: ``loss_fn(batch) -> (loss, metrics)``
     in train mode, backward and one Adam step; returns the metrics as device
-    scalars. Shared by the refinement and supervised steps."""
+    scalars. Shared by the refinement, supervised, classify and exploration
+    steps.
+
+    Under a process group of several ranks (``parallel/dist``) ``batch`` is
+    this rank's rows: the loss takes its global sums and BatchNorm moments
+    over every rank, the gradients are averaged over the ranks before the
+    step (DDP's reduction, :func:`parallel.dist.allreduce_grads`), and the
+    metrics are the global batch's, so the step is one process's step over
+    the global batch (JAX ``auto_dp_step``, mesh.py:107-128)."""
 
     def train_step(state, batch):
         model.train()
-        loss, metrics = loss_fn(batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with D.synced():
+            loss, metrics = loss_fn(batch)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            D.allreduce_grads(model.parameters())
+            metrics = D.mean_metrics(metrics)
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
+    train_step.loss_fn = loss_fn  # the forward half, for timing by stage
     return train_step
 
 
@@ -181,7 +193,9 @@ def prepare_refine(config, log_fn=print, device="cuda", freeze=()):
     detector initialized from ``config.seed``, Adam (``freeze``: top-level
     modules left out of it, ``train/state.TrainState``), and
     ``--load_model``, a ``.pth`` or a JAX checkpoint directory (with
-    ``--resume``, the optimizer and epoch too)."""
+    ``--resume``, the optimizer and epoch too). Under a process group the
+    model goes to the rank's own card (``infer/detector.resolve_device``);
+    every rank draws the same initial weights."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(config.seed)
@@ -197,7 +211,7 @@ def prepare_refine(config, log_fn=print, device="cuda", freeze=()):
 
 def run_epoch(train_step, state, dataset, rng, config, epoch, device,
               log_fn=print, check=None, lr=None, num_iters=True,
-              profile_dir=None):
+              profile_dir=None, shard=True):
     """One epoch of ``train_step`` over ``dataset.epoch_batches``, shared by
     the refinement, supervised and exploration loops (refine.py:308-420,
     supervised.py:238-270, explore.py:243-342): the epoch's learning rate
@@ -207,7 +221,14 @@ def run_epoch(train_step, state, dataset, rng, config, epoch, device,
     step late (train/metrics.py); ``check`` sees each step's metrics as
     they arrive. ``profile_dir``: trace the epoch there
     (``utils/profiling.maybe_trace``). Logs and returns the epoch's means,
-    and logs the samples/s of the steps after the first."""
+    and logs the samples/s of the steps after the first.
+
+    Under a process group every rank draws the same global batches from
+    ``rng``; with ``shard`` each rank copies only its rows to its device
+    (``parallel/dist.local_batch``), else the whole batch (a step whose
+    device-side draws must see the global batch slices it itself).
+    ``config.batch_size`` is the global batch."""
+    D.check_batch_split(config.batch_size)
     set_learning_rate(state, lr_at_epoch(config, epoch) if lr is None else lr)
     epoch_metrics = []
     cap = config.num_iters if num_iters and config.num_iters >= 0 else None
@@ -220,9 +241,11 @@ def run_epoch(train_step, state, dataset, rng, config, epoch, device,
             epoch_metrics.append(m)
 
     t_first = None  # host clock when step 1 had finished
+    batches = dataset.epoch_batches(rng, config.batch_size)
+    if shard:
+        batches = map(D.local_batch, batches)
     with maybe_trace(profile_dir, cuda=torch.device(device).type == "cuda"), \
-            PrefetchIterator(dataset.epoch_batches(rng, config.batch_size),
-                             device=device) as batches:
+            PrefetchIterator(batches, device=device) as batches:
         for batch in itertools.islice(batches, cap):
             collect(drain.push(train_step(state, batch)))
             if t_first is None:
@@ -256,7 +279,10 @@ def train_refine(config, dataset, val_dataset=None, num_epochs=None,
     ``--num_iters`` cap, write-behind ``model_last.pth``, and every
     ``val_intervals`` epochs validation (with ``--debug > 0`` the overlays
     of :func:`debug_val_volume`), ``model_best.pth`` and, with
-    ``--save_all``, ``model_<epoch>.pth``. Returns (state, history)."""
+    ``--save_all``, ``model_<epoch>.pth``. Under a process group the ranks
+    train together, and rank 0 alone validates and writes (the other ranks
+    go on to the next epoch's first step, which waits for it). Returns
+    (state, history)."""
     if prepared is None:
         prepared = prepare_refine(config, log_fn=log_fn, device=device)
     model, state = prepared["model"], prepared["state"]
@@ -292,7 +318,7 @@ def train_refine(config, dataset, val_dataset=None, num_epochs=None,
             snap = ckpt.save(os.path.join(config.save_dir, "model_last.pth"),
                              checkpoint_payload(state), config)
             if config.val_intervals > 0 and epoch % config.val_intervals == 0:
-                if val_step is not None:
+                if val_step is not None and D.is_main():
                     vals = []
                     for i in range(len(val_dataset.names)):
                         item = val_dataset.val_item(i)

@@ -21,7 +21,11 @@ step (a parameter the loss does not reach gets a zero gradient), as optax
 updates the whole tree, so Adam's moments and step count are JAX's. Batch
 indices and the host-side strong augmentation come from one
 ``np.random.default_rng(seed)`` in JAX's order, so the batches are JAX's.
-The fine-tune runs on one device (JAX wraps it in its data-parallel step).
+Under a process group the fine-tune and self-labeling steps are
+data-parallel, as JAX's ``auto_dp_step`` makes them (scan.py:391-456): each
+rank draws the global batch's indices and keeps its rows, the entropy
+term's batch mean and the self-labeling counts are the global batch's, and
+the gradients are averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -34,12 +38,17 @@ from torch import nn
 from cet_pick_tpu_torch.models.flax_init import flax_init_
 from cet_pick_tpu_torch.models.simsiam import create_scan_model
 from cet_pick_tpu_torch.ops.kmeans import knn_search
+from cet_pick_tpu_torch.parallel import dist as D
 from cet_pick_tpu_torch.train.state import TrainState, _merge_tolerant
 
 
 def entropy_of_mean(probs, eps=1e-8):
-    """Entropy of the batch-mean cluster distribution (scan.py:29-32)."""
-    mean = torch.mean(probs, dim=0)
+    """Entropy of the batch-mean cluster distribution (scan.py:29-32); the
+    global batch's mean in a data-parallel step."""
+    if D.is_synced():
+        mean = D.global_sum(probs.sum(0)) / D.global_count(probs.shape[0])
+    else:
+        mean = torch.mean(probs, dim=0)
     return -torch.sum(mean * torch.log(mean + eps))
 
 
@@ -56,15 +65,16 @@ def scan_loss(anchor_logits, neighbor_logits, entropy_weight=2.0, eps=1e-8):
 def confidence_ce_loss(weak_logits, strong_logits, threshold=0.99,
                        class_balance=True):
     """Masked self-labeling CE (scan.py:46-64, loss.py:15-66). Returns
-    (loss, n_confident)."""
+    (loss, n_confident); the counts and sums are the global batch's in a
+    data-parallel step."""
     probs = F.softmax(weak_logits, dim=1)
     max_prob = torch.amax(probs, dim=1)
     target = torch.argmax(probs, dim=1)  # the first index of a tie
     mask = (max_prob > threshold).to(probs.dtype)
-    n = torch.sum(mask)
+    n = D.global_sum(torch.sum(mask))
     if class_balance:
         one_hot = F.one_hot(target, weak_logits.shape[1]).to(probs.dtype)
-        counts = (one_hot * mask[:, None]).sum(dim=0)
+        counts = D.global_sum((one_hot * mask[:, None]).sum(dim=0))
         freq = torch.where(counts > 0, n / counts.clamp_min(1.0),
                            torch.ones_like(counts))
         w = freq[target]
@@ -72,8 +82,8 @@ def confidence_ce_loss(weak_logits, strong_logits, threshold=0.99,
         w = torch.ones_like(max_prob)
     logp = F.log_softmax(strong_logits, dim=1)
     ce = -torch.gather(logp, 1, target[:, None])[:, 0]
-    loss = torch.sum(ce * w * mask) / torch.sum(w * mask).clamp_min(1.0)
-    return loss, n
+    num, den = D.global_sums(torch.sum(ce * w * mask), torch.sum(w * mask))
+    return num / den.clamp_min(1.0), n
 
 
 class ClusteringHead(nn.Linear):
@@ -100,9 +110,11 @@ def mine_neighbors(embeddings, k=20, block=1024, device="cuda"):
 def _apply_gradients(state, loss):
     """Backward and one Adam step over every trained parameter, those the
     loss does not reach with a zero gradient (optax updates the whole tree:
-    their Adam moments decay and their step count advances, as in JAX)."""
+    their Adam moments decay and their step count advances, as in JAX).
+    In a data-parallel step the gradients are averaged over the ranks."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    D.allreduce_grads(state.trained_parameters())
     for p in state.trained_parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -188,25 +200,27 @@ def make_scan_finetune_step(model, entropy_weight=2.0, head_only=False):
     loss is the sum of the heads' SCAN losses; ``head_losses`` holds each."""
 
     def step(state, a2d, a3d, n2d, n3d):
-        if head_only:
-            model.eval()
-            with torch.no_grad():
+        with D.synced():
+            if head_only:
+                model.eval()
+                with torch.no_grad():
+                    fa = model.features(a2d, a3d)
+                    fn = model.features(n2d, n3d)
+            else:
+                model.train()
                 fa = model.features(a2d, a3d)
                 fn = model.features(n2d, n3d)
-        else:
-            model.train()
-            fa = model.features(a2d, a3d)
-            fn = model.features(n2d, n3d)
-        totals, cons, ents = zip(*(
-            scan_loss(la, ln, entropy_weight) for la, ln in
-            zip(model.head_logits(fa), model.head_logits(fn))))
-        head_losses = torch.stack(totals)
-        loss = head_losses.sum()
-        _apply_gradients(state, loss)
-        return {"total_loss": loss.detach(),
+            totals, cons, ents = zip(*(
+                scan_loss(la, ln, entropy_weight) for la, ln in
+                zip(model.head_logits(fa), model.head_logits(fn))))
+            head_losses = torch.stack(totals)
+            loss = head_losses.sum()
+            _apply_gradients(state, loss)
+            return D.mean_metrics({
+                "total_loss": loss.detach(),
                 "consistency_loss": torch.stack(cons).mean().detach(),
                 "entropy_loss": torch.stack(ents).mean().detach(),
-                "head_losses": head_losses.detach()}
+                "head_losses": head_losses.detach()})
 
     return step
 
@@ -222,11 +236,14 @@ def make_selflabel_step(model, threshold=0.99, class_balance=True, head=0):
         with torch.no_grad():
             weak = model(w2d, w3d)[head]
         model.train()
-        strong = model.head_logits(model.features(s2d, s3d))[head]
-        loss, n_conf = confidence_ce_loss(weak, strong, threshold=threshold,
-                                          class_balance=class_balance)
-        _apply_gradients(state, loss)
-        return {"loss": loss.detach(), "n_confident": n_conf}
+        with D.synced():
+            strong = model.head_logits(model.features(s2d, s3d))[head]
+            loss, n_conf = confidence_ce_loss(
+                weak, strong, threshold=threshold,
+                class_balance=class_balance)
+            _apply_gradients(state, loss)
+            return D.mean_metrics({"loss": loss.detach(),
+                                   "n_confident": n_conf.detach()})
 
     return step
 
@@ -304,10 +321,12 @@ def train_scan_full(config, patches_2d, patches_3d, neighbors, n_clusters,
     x3 = None if p3 is None else torch.from_numpy(p3).to(device)
 
     def views(idx):
-        i = torch.from_numpy(idx).to(device)
+        # under a process group: this rank's rows of the global batch
+        i = torch.from_numpy(D.local_rows(idx)).to(device)
         return x2[i, None], (None if x3 is None else x3[i, None])
 
     step = make_scan_finetune_step(model, entropy_weight, head_only=head_only)
+    D.check_batch_split(min(batch_size, len(p2)))
     rng = np.random.default_rng(seed)
     n, k = len(p2), neighbors.shape[1]
     tail = max(1, min(50, num_steps))
@@ -338,9 +357,10 @@ def train_scan_full(config, patches_2d, patches_3d, neighbors, n_clusters,
         for it in range(selflabel_steps):
             idx = rng.integers(0, n, size=min(batch_size, n))
             w2d, w3d = views(idx)
-            s2d = torch.from_numpy(_strong_aug(rng, p2[idx])).to(device)
-            s3d = None if p3 is None else torch.from_numpy(
-                _strong_aug(rng, p3[idx])).to(device)
+            s2d = torch.from_numpy(D.local_rows(
+                _strong_aug(rng, p2[idx]))).to(device)
+            s3d = None if p3 is None else torch.from_numpy(D.local_rows(
+                _strong_aug(rng, p3[idx]))).to(device)
             metrics = sl_step(state, w2d, w3d, s2d[:, None],
                               None if s3d is None else s3d[:, None])
             if (it + 1) % 50 == 0:

@@ -22,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from cet_pick_tpu_torch.parallel import dist as D
 from cet_pick_tpu_torch.train.refine import (
     make_train_step,
     make_val_step,
@@ -52,8 +53,8 @@ def train_semiclass(config, dataset, val_dataset=None, num_epochs=None,
     ``model_last.pth`` after every epoch; every ``val_intervals`` epochs plain focal on each
     validation volume against its label volume with the -1s set to 0
     (:107-115), and with ``--save_all`` ``model_<epoch>.pth``. JAX keeps no
-    best checkpoint here, and neither does the port. Returns
-    (state, history)."""
+    best checkpoint here, and neither does the port. Under a process group
+    rank 0 alone validates and writes. Returns (state, history)."""
     check_semiclass_config(config)
     if prepared is None:
         prepared = prepare_refine(config, log_fn=log_fn, device=device)
@@ -72,7 +73,7 @@ def train_semiclass(config, dataset, val_dataset=None, num_epochs=None,
             snap = ckpt.save(os.path.join(config.save_dir, "model_last.pth"),
                              checkpoint_payload(state), config)
             if (val_step is not None and config.val_intervals > 0
-                    and epoch % config.val_intervals == 0):
+                    and epoch % config.val_intervals == 0 and D.is_main()):
                 vals = []
                 for i in range(len(val_dataset.names)):
                     item = val_dataset.val_item(i)

@@ -31,6 +31,7 @@ from cet_pick_tpu_torch.models.convert import (
     read_any_checkpoint,
     state_dict_from_jax_tree,
 )
+from cet_pick_tpu_torch.parallel.dist import is_main
 
 
 # optax keeps Adam's decay rates in float32, so its second moment decays
@@ -113,7 +114,10 @@ def _map_tensors(tree, fn):
 def write_checkpoint_file(path: str, payload: dict, config=None):
     """``torch.save`` to ``path`` through a temporary file and
     ``os.replace``, so an aborted write leaves the previous checkpoint
-    intact; ``opt.json`` beside it."""
+    intact; ``opt.json`` beside it. Under a process group only rank 0
+    writes; the other ranks' calls do nothing."""
+    if not is_main():
+        return
     directory = os.path.dirname(path) or "."
     os.makedirs(directory, exist_ok=True)
     tmp = path + ".tmp"
@@ -153,8 +157,12 @@ class AsyncCheckpointer:
 
     def save(self, path: str, payload, config=None, snapshotted=False):
         """Queue one checkpoint write. ``payload`` is snapshotted here
-        unless the caller passes a :meth:`snapshot` result."""
+        unless the caller passes a :meth:`snapshot` result. Only rank 0 of
+        a process group writes: elsewhere this returns ``payload`` as it
+        is."""
         self._check()
+        if not is_main():
+            return payload
         if not snapshotted:
             payload = self.snapshot(payload)
         self._q.put((path, payload, config))

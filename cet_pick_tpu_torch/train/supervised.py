@@ -29,6 +29,7 @@ import torch
 
 from cet_pick_tpu_torch.ops.gram import gram_supcon_v2_stats
 from cet_pick_tpu_torch.ops.nms import sigmoid_clamped
+from cet_pick_tpu_torch.parallel.dist import local_rows, world
 from cet_pick_tpu_torch.train import losses as L
 from cet_pick_tpu_torch.train.fewshot import (
     partial_sup_loss,
@@ -78,15 +79,19 @@ def tomo_site_supcon(feats, hm, ties=None, generator=None, temp=0.2,
     pixels into one labeled set and applies ``partial_sup_loss``; rows the
     gather could not fill carry label 0. Which members are gathered is
     drawn at random: ``ties`` gives the (tie_p, tie_n) uniforms, each
-    (B, N), or else ``generator`` draws them (tie_p, then tie_n). With
+    (B, N), or else ``generator`` draws them (tie_p, then tie_n; under a
+    process group for the global batch, of which this rank keeps its
+    rows, so the ranks draw what one process would). With
     neither, the first members by index are taken, as JAX does with
     ``key=None``."""
     k = min(GATHER_K, feats.shape[-2])
     pos = hm > thresh
     neg = hm <= thresh
     if ties is None and generator is not None:
-        ties = torch.rand((2,) + tuple(hm.shape), generator=generator,
-                          device=hm.device, dtype=hm.dtype)
+        # under a process group: the global batch's draws, this rank's rows
+        ties = local_rows(torch.rand(
+            (2, hm.shape[0] * world()) + tuple(hm.shape[1:]),
+            generator=generator, device=hm.device, dtype=hm.dtype), dim=1)
     if ties is None:
         tie_p = tie_n = torch.zeros_like(hm)
     else:

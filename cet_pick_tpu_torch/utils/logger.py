@@ -12,10 +12,19 @@ import os
 import sys
 import time
 
+from cet_pick_tpu_torch.parallel.dist import is_main
+
 
 class Logger:
+    """Under a process group of several ranks only rank 0 logs and writes;
+    the other ranks' logger is silent."""
+
     def __init__(self, config):
         self.config = config
+        self.quiet = not is_main()
+        if self.quiet:
+            self.log_path, self._log = None, None
+            return
         os.makedirs(config.save_dir, exist_ok=True)
         time_str = time.strftime("%Y-%m-%d-%H-%M")
 
@@ -41,8 +50,11 @@ class Logger:
 
     def log(self, msg):
         """Print + append to log.txt — the train command's log_fn."""
+        if self.quiet:
+            return
         print(msg)
         self.write(str(msg) + "\n")
 
     def close(self):
-        self._log.close()
+        if self._log is not None:
+            self._log.close()

@@ -48,7 +48,8 @@ non-zero; nothing falls back to the CPU):
              loss, as the trainer keeps it): outputs checked, per-stage
              times, the launch count of every kernel during that run, and
              the F1 of the picks against the planted particles (> 0.7);
-             then ``test`` with ``model_last.pth``, its F1 reported only
+             (the report-only ``test`` with ``model_last.pth`` gave way to
+             the ddp phase)
 7. breakdown device time of one volume's forward + decode by stage
 8. train_cr  ``train --task cr --pn`` (unet_4) on the same volumes: the
              heatmap loss falls from the first epoch to the last, and each
@@ -61,7 +62,8 @@ non-zero; nothing falls back to the CPU):
              then ``test --arch unetw_3`` with its ``model_best.pth`` (the
              z-tap kernel at C = F = 128): outputs checked, F1 > 0.7,
              per-stage times, the peak device bytes per fused input voxel,
-             and its forward by stage; and its ``model_last.pth``'s F1
+             and its forward by stage (the report-only ``test`` of its
+             ``model_last.pth`` gave way to the ddp phase)
 11. semiclass ``train --task semiclass --ge`` (unet_4, batch 8,
              contrastive: the row gram kernels at (8, 12288, 32)), 3
              epochs, then ``--pn`` (the logit ones), 10 epochs
@@ -70,13 +72,14 @@ non-zero; nothing falls back to the CPU):
              to the step count, the train-feature check; samples/s and the
              host cost of the first batch (the stratified sampler's build)
              against the next ones
-12. classify ``classify-test`` with each semiclass run's ``model_last.pth``
+12. classify ``classify-test`` with the semiclass ``--pn`` run's ``model_last.pth``
              (bbox 8, nms 5, cutoff_z 2, out_thresh 0.15): the z-tap kernel
              launched, the heatmap border zero, the greedy NMS's candidate
              count, stage times, and the F1 against the planted centres the
              decode can pick (outside the 60-px border band): > 0.6 for the
              ``--pn`` model (the JAX package's bar,
-             tests/test_semiclass.py:128-131), reported for ``--ge``
+             tests/test_semiclass.py:128-131); the report-only ``--ge``
+             run (classify_test_ge) gave way to the ddp phase
 13. semi3d   ``train --task semi3d --arch res3d_2`` (the row gram; losses
              finite, a later epoch below the first), then ``test`` with its
              ``model_best.pth`` untiled (the z-tap kernel in the context
@@ -198,10 +201,13 @@ adds, after ``vol_migration`` (walls in the same ``walls`` line):
              run's state, a batch and its centres: loss and terms 1e-5,
              centres 1e-5, assignments >= 99.9% equal, gradients within
              1e-2 plus twice the CPU f32's own distance from float64 of
-             each tensor's largest, parameters 1e-5 of max(1, largest)
-             where the float64 gradient is not near 0 (``step_errors``);
+             the step's largest, the same step in float64 on the card
+             within 1e-9 of each tensor's largest of the CPU's float64,
+             parameters 1e-5 of max(1, largest) where the float64
+             gradient is not near 0 (``step_errors``);
              the same from the seeded weights with the Lloyd loop in f32
-             and in float64, reported
+             and in float64, and the trained f32 step under a 1e-7
+             input change, reported
 - denoise    ``denoise`` at its defaults (crop 128, batch 8, lr 1e-3,
              exclude 200) for DENOISE_ITERS iterations on one 256x512x512
              rec of blobs under noise, ``--write_denoised``, then
@@ -243,6 +249,40 @@ entry adds (walls in the ``walls`` line):
              eval forward, z-tap launches 2 x the validation volumes, row
              gram launches equal to the steps; the peak bytes of the
              untiled whole-volume forward
+
+The slice of data parallelism and multi-rank picking adds, after
+``debug``, one phase:
+
+- ddp        two ranks of one gloo group sharing the card (NCCL refuses
+             two ranks on one device), each a process of this script
+             (``--ddp-rank``): DDP_STEPS default ``semi`` steps and
+             DDP_PN_STEPS ``--pn`` step of unet_4 on 6x64x64 crops of the
+             main path's first volume, global batch DDP_BATCH (one row a
+             rank): each rank's row / logit gram launches equal to its
+             steps, each step's gram inputs against the plain version
+             (``*_gram_check``), and the first step against one process's
+             step over the same global batch on the card, the steps with
+             cuDNN's convolutions off (DDP_GRAD_TOL): metrics within
+             DDP_METRIC_TOL, BN statistics within DDP_BN_TOL, gradients
+             within DDP_GRAD_TOL of the step's largest of the NCCL rank's
+             step at world size 1 (below), which is held within
+             STEP_GRAD_TOL of the plain single-process step; one more
+             ``semi`` step with cuDNN on, as ``train --mesh_shape`` runs,
+             within DDP_CUDNN_GRAD_TOL of one process's, and the same in
+             float64 (contrastive off) within DDP_F64_GRAD_TOL, beside
+             one process's float32 step under DDP_NOISE input noise
+             against itself (DDP_CUDNN_GRAD_TOL's comment); then ``test
+             --mesh_shape 2`` on that 256x512x512 volume from the main path's
+             ``model_best.pth`` with ``--tile`` DDP_TILE (H in four xy
+             tiles, two a rank): ``_hm.mrc`` within DDP_HM_TOL of the
+             single-process ``test``'s with the same flags, its picks equal
+             outside the tie band, the two ranks' z-tap launches adding up
+             to the single process's, rank 0 alone writing; the NCCL path
+             at world size 1 (one ``semi`` step, held as above); and
+             ``graft_entry.dryrun_multichip(2)`` on the card, these two
+             at once after the two ranks. Per-rank step ms and samples/s
+             are reported: ranks that share one card show correctness,
+             not scaling
 
 The model phase also runs ``res3d_2`` and ``res3dref_18``: the card's
 untiled forward against the CPU's, and one untiled forward of a
@@ -312,7 +352,7 @@ from cet_pick_tpu_torch.ops.ztap_conv import (
 from cet_pick_tpu_torch.train import losses as train_losses
 from cet_pick_tpu_torch.train import supervised as train_supervised
 from cet_pick_tpu_torch.train.refine import make_train_step, prepare_refine
-from cet_pick_tpu_torch.train.state import save_checkpoint
+from cet_pick_tpu_torch.train.state import TrainState, save_checkpoint
 
 # Dense FP32 (non-tensor-core) rate, dense TF32 tensor-core rate and memory
 # bandwidth by the name nvidia-smi gives; NVIDIA data sheets. "H100" alone
@@ -1628,11 +1668,12 @@ EXPLORE_ANGLES = np.arange(-60.0, 61.0, 3.0)
 # large diffuse (tests/test_explore.py:407-440)
 EXPLORE_CLASSES = ((2.5, 2.0), (1.8, 3.0))
 # explore: 25,750 candidates in 100 steps an epoch, 12.6 s at 2,046
-# samples/s (PERF.md section 5). 2 epochs (4 until the smoke's phases for
-# export-torch, import-torch and --debug, whose time the cuts of this and
-# other phases' depth make up: the smoke keeps within its time limit on a
-# slow host), and 1 of the 2d mode and of the vol mode (2 before)
-EXPLORE_EPOCHS = 2
+# samples/s (PERF.md section 5). 1 epoch (4 until the smoke's phases for
+# export-torch, import-torch and --debug, 2 until the ddp phase's cuDNN-on
+# steps, whose time the cuts of this and other phases' depth make up: the
+# smoke keeps within its time limit on a slow host), and 1 of the 2d mode
+# and of the vol mode (2 before)
+EXPLORE_EPOCHS = 1
 EXPLORE_2D_EPOCHS = 1
 EXPLORE_BATCH = 256
 EXPLORE_MODEL_BATCH = 32  # the card-vs-CPU check: the CPU runs it too
@@ -2663,7 +2704,6 @@ def scan_step_card_vs_cpu(model_sd, work):
     Then the step as it runs (Adam, lr 1e-4) timed on the card."""
     from cet_pick_tpu_torch.models.simsiam import ScanClusteringModel
     from cet_pick_tpu_torch.train.scan import make_scan_finetune_step
-    from cet_pick_tpu_torch.train.state import TrainState
 
     npz = np.load(os.path.join(work, "exp", "simsiam2d3d", "explore",
                                "all_output_info.npz"))
@@ -3249,14 +3289,370 @@ def phase_graft_entry():
         raise RuntimeError(f"graft_entry: card != CPU {errs}")
     return rec
 
+# data parallelism (the ddp phase): unet_4 at the main path's crops,
+# global batch DDP_BATCH over DDP_WORLD ranks sharing the card (gloo)
+DDP_WORLD = 2
+DDP_BATCH = 2
+DDP_STEPS = 3
+DDP_PN_STEPS = 1
+# metrics of the first step, DP against one process: f32 sums of the loss
+# in another grouping and the trunk's convolutions at another batch size
+# (JAX's own DP loss bar is 2e-4, tests/test_parallel.py)
+DDP_METRIC_TOL = 1e-4
+# gradients of the first step, of the step's largest gradient: the DP
+# step at world size 2 against the DP step of one rank (NCCL, world size 1,
+# the same global batch), within DDP_GRAD_TOL, the bar
+# tests/test_torch_parallel.py holds float32 DP steps to on the CPU (where
+# the float64 steps agree to 1e-13); that one rank against the plain
+# single-process step within STEP_GRAD_TOL (step_errors' bar for a tensor
+# of rounding; measured 2.1e-3: the closed-form BatchNorm against
+# F.batch_norm). These steps run with cuDNN's convolutions off. With them
+# on, as ``train --mesh_shape`` runs, two ranks' first-block weight
+# gradients lie 2.4e-2 to 2.5e-2 of the step's largest from one process's
+# in every call that measured it, on an NVIDIA H100 80GB HBM3, 700.00 W
+# (PERF.md). That is the float32 step's own sensitivity, not the DP step:
+# one process's step moves as far under a 1e-7 relative change of its
+# input (DDP_NOISE_SEEDS draws, reported: a max-pool's choice that
+# rounding flips), and in float64 (contrastive off: the gram kernels take
+# float32 only) two ranks with cuDNN on equal one process within
+# DDP_F64_GRAD_TOL. The float32 step with cuDNN on is held within
+# DDP_CUDNN_GRAD_TOL, twice the readings
+DDP_GRAD_TOL = 1e-3
+DDP_CUDNN_GRAD_TOL = 5e-2
+DDP_F64_GRAD_TOL = 1e-9
+DDP_NOISE = 1e-7
+DDP_NOISE_SEEDS = 3
+DDP_BN_TOL = 1e-5
+DDP_HM_TOL = 1e-6
+DDP_TILE = ["64", "128", "0"]  # H in four xy tiles of 416 rows, W whole
+
+
+def ddp_refine_steps(work, pn, steps, check=True, cudnn=False,
+                     dtype=torch.float32, noise_seed=None):
+    """``steps`` refinement steps of a seeded unet_4 (contrastive, but
+    not in float64, which the gram kernels do not take; ``pn``: the logit
+    gram) over the global batches one process draws from the seed, on this
+    process's rows (all of them without a process group), in ``dtype``,
+    with cuDNN's convolutions off unless ``cudnn``; ``noise_seed``: each
+    crop times 1 + DDP_NOISE N(0, 1) drawn from it. With
+    ``check`` each step's gram inputs are kept and held against the plain
+    version after the steps. Returns (record, first step's tensors:
+    gradients and BN statistics on the CPU)."""
+    from cet_pick_tpu_torch.parallel import dist as D
+
+    cfg = Config(task="semi", arch="unet_4",
+                 contrastive=dtype == torch.float32, pn=pn,
+                 batch_size=DDP_BATCH, order="zxy", data_dir=work,
+                 root_dir=work, train_img_txt="one_image.txt").finalize()
+    prepared = prepare_refine(cfg, log_fn=lambda *_: None, device=DEVICE)
+    model, state, device = (prepared[k] for k in ("model", "state",
+                                                  "device"))
+    model.to(dtype)
+    ds = RefineDataset(cfg, "train")
+    batches = ds.epoch_batches(np.random.default_rng(cfg.seed),
+                               cfg.batch_size)
+    step = make_train_step(model, cfg)
+    name, variant = (("gram_logit_stats", "logit") if pn
+                     else ("gram_row_stats", "row"))
+    metrics, ms, first = [], [], None
+    torch.cuda.synchronize()
+    reset_launches()
+    with (captured_gram(train_losses, name, every=1) if check
+          else contextlib.nullcontext([])) as kept, \
+            torch.backends.cudnn.flags(  # TF32 stays off
+                enabled=cudnn, allow_tf32=torch.backends.cudnn.allow_tf32):
+        for i in range(steps):
+            batch = next(batches)
+            if noise_seed is not None:
+                x = batch["input"]
+                batch = dict(batch, input=(x * (1 + DDP_NOISE * np.random
+                                                 .default_rng(noise_seed)
+                                                 .standard_normal(x.shape))
+                                           ).astype(np.float32))
+            batch = {k: torch.from_numpy(v).to(device, dtype)
+                     for k, v in D.local_batch(batch).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                first = {
+                    "grads": {n: p.grad.detach().cpu().clone()
+                              for n, p in model.named_parameters()
+                              if p.grad is not None},
+                    "stats": {n: b.detach().cpu().clone()
+                              for n, b in model.named_buffers()
+                              if n.endswith(("running_mean",
+                                             "running_var"))}}
+    launches = read_launches()
+    rec = {"pn": pn, "steps": steps, "metrics": metrics, "step_ms": ms,
+           "launches": launches[name], "ztap_launches":
+               launches["ztap_dilated_conv"]}
+    if check:
+        rec["gram_check_ok"] = all(
+            c["ok"] for c in check_train_gram(
+                f"ddp_{'pn' if pn else 'semi'}_rank{D.rank()}", variant,
+                kept))
+    return rec, first
+
+
+def ddp_test_argv(work, exp_id, ckpt, world=None):
+    argv = ["test", "--task", "semi", "--arch", "unet_4", "--exp_id", exp_id,
+            "--order", "zxy", "--data_dir", work, "--root_dir", work,
+            "--test_img_txt", "one_image.txt", "--with_score", "--device",
+            DEVICE, "--load_model", ckpt, "--tile", *DDP_TILE]
+    return argv + (["--mesh_shape", str(world)] if world else [])
+
+
+def ddp_rank(backend, work):
+    """One rank of the ddp phase (``--ddp-rank``), a process of its own:
+    joins the group, runs the DP steps, a ``semi`` step with cuDNN on in
+    float32 and one in float64, and ``test --mesh_shape`` (at world size 1: one ``semi`` step),
+    writes ``ddp_<world>_rank<r>.json`` and, on rank 0, the first step's
+    tensors ``ddp_<world>_first.pt`` (with cuDNN on, float32 and float64:
+    ``..._cudnn.pt``)."""
+    import torch.distributed as dist
+
+    from cet_pick_tpu_torch.parallel.mesh import join
+
+    rank, world = join(DEVICE, backend=backend)
+    res = {"rank": rank, "world": world, "backend": dist.get_backend()}
+    res["semi"], first = ddp_refine_steps(work, False,
+                                          DDP_STEPS if world > 1 else 1)
+    if world > 1:
+        res["pn"], _ = ddp_refine_steps(work, True, DDP_PN_STEPS)
+        res["semi_cudnn"], first_cudnn = ddp_refine_steps(
+            work, False, 1, check=False, cudnn=True)
+        res["f64_cudnn"], first_f64 = ddp_refine_steps(
+            work, False, 1, check=False, cudnn=True, dtype=torch.float64)
+        ckpt = os.path.join(work, "exp", "semi", "default", "model_best.pth")
+        lines, launches, wall = run_cli(ddp_test_argv(work, "ddp_test", ckpt,
+                                                      world))
+        res["test"] = {"ztap_launches": launches["ztap_dilated_conv"],
+                       "wall_s": wall, "lines": lines}
+    res["check_failures"] = list(CHECK_FAILURES)
+    with open(os.path.join(work, f"ddp_{world}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        torch.save(first, os.path.join(work, f"ddp_{world}_first.pt"))
+        if world > 1:
+            torch.save({"f32": first_cudnn, "f64": first_f64},
+                       os.path.join(work, f"ddp_{world}_first_cudnn.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _start_ranks(world, backend, work):
+    from cet_pick_tpu_torch.parallel.mesh import start_local_ranks
+
+    return start_local_ranks(
+        world, [sys.executable, os.path.abspath(__file__), "--ddp-rank",
+                "--ddp-backend", backend, "--ddp-work", work],
+        "file://" + os.path.join(work, f"ddp_rdv_{world}"),
+        log=lambda r: os.path.join(work, f"ddp_{world}_{r}.log"))
+
+
+def _wait_ranks(procs, world, work, timeout=600):
+    from cet_pick_tpu_torch.parallel.mesh import wait_ranks
+
+    rc = wait_ranks(procs, timeout=timeout)
+    if rc:
+        logs = [open(os.path.join(work, f"ddp_{world}_{r}.log")).read()[-3000:]
+                for r in range(world)]
+        raise RuntimeError(f"ddp world {world}: exit code {rc}:\n"
+                           + "\n".join(logs))
+    res = []
+    for r in range(world):
+        with open(os.path.join(work, f"ddp_{world}_rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res, torch.load(os.path.join(work, f"ddp_{world}_first.pt"))
+
+
+def ddp_step_errors(dp, one, dp_metrics, one_metrics, grad_tol):
+    """The first DP step against one process's: the worst metric error
+    (relative), gradient error (of the step's largest gradient, gated; and
+    of each tensor's largest, floored at 1e-3 of the step's largest,
+    reported) and BN error (of max(1, the tensor's largest))."""
+    top = max(float(g.abs().max()) for g in one["grads"].values())
+    errs = {n: float((dp["grads"][n] - g).abs().max())
+            for n, g in one["grads"].items()}
+    grad = max(errs[n] / max(float(g.abs().max()), 1e-3 * top)
+               for n, g in one["grads"].items())
+    of_step = max(errs.values()) / top
+    bn = max(float((dp["stats"][n] - s).abs().max())
+             / max(1.0, float(s.abs().max())) for n, s in one["stats"].items())
+    metric = max(abs(dp_metrics[k] - v) / max(abs(v), 1e-30)
+                 for k, v in one_metrics.items())
+    return {"metric_rel": metric, "grad_rel_of_step": of_step,
+            "grad_rel": grad, "bn_rel": bn,
+            "same_grads": set(dp["grads"]) == set(one["grads"]),
+            "grad_tol": grad_tol,
+            "ok": (metric <= DDP_METRIC_TOL and of_step <= grad_tol
+                   and bn <= DDP_BN_TOL
+                   and set(dp["grads"]) == set(one["grads"]))}
+
+
+def phase_ddp(work, names):
+    """The ddp phase (module docstring). Returns its record."""
+    t_phase = time.perf_counter()
+    with open(os.path.join(work, "one_image.txt"), "w") as f:
+        f.write(f"image_name\trec_path\n{names[0]}\t"
+                f"{os.path.join(work, names[0] + '.rec')}\n")
+    ckpt = os.path.join(work, "exp", "semi", "default", "model_best.pth")
+    # one process over the global batch, and its test, first: the ranks
+    # then have the card to themselves for their step times
+    one_semi, one_first = ddp_refine_steps(work, False, DDP_STEPS,
+                                           check=False)
+    one_cudnn, cudnn_first = ddp_refine_steps(work, False, 1, check=False,
+                                              cudnn=True)
+    one_f64, f64_first = ddp_refine_steps(work, False, 1, check=False,
+                                          cudnn=True, dtype=torch.float64)
+    noisy = [ddp_refine_steps(work, False, 1, check=False, cudnn=True,
+                              noise_seed=seed)[1]
+             for seed in range(DDP_NOISE_SEEDS)]
+    one_pn, _ = ddp_refine_steps(work, True, DDP_PN_STEPS, check=False)
+    _, one_launches, one_wall = run_cli(ddp_test_argv(work, "ddp_test_one",
+                                                      ckpt))
+    # the two ranks alone on the card (their test's convolutions then
+    # pick their algorithms as one process's do), then the NCCL rank at
+    # world size 1 and the graft entry's dry run (two more ranks) at once
+    ranks, dp_first = _wait_ranks(_start_ranks(DDP_WORLD, "gloo", work),
+                                  DDP_WORLD, work)
+    nccl = _start_ranks(1, "nccl", work)
+    dry = subprocess.run(
+        [sys.executable, "-c", "from cet_pick_tpu_torch.graft_entry import "
+         "dryrun_multichip; dryrun_multichip(2)"], capture_output=True,
+        text=True, timeout=600)
+    (nccl_res,), nccl_first = _wait_ranks(nccl, 1, work)
+
+    failures = [f for r in ranks + [nccl_res] for f in r["check_failures"]]
+    first_dp = ranks[0]["semi"]["metrics"][0]
+    dp_cudnn = torch.load(os.path.join(work, "ddp_2_first_cudnn.pt"))
+    steps = {"world2_vs_world1": ddp_step_errors(
+                 dp_first, nccl_first, first_dp,
+                 nccl_res["semi"]["metrics"][0], DDP_GRAD_TOL),
+             "world1_vs_one_process": ddp_step_errors(
+                 nccl_first, one_first, nccl_res["semi"]["metrics"][0],
+                 one_semi["metrics"][0], STEP_GRAD_TOL),
+             "world2_vs_one_process": ddp_step_errors(
+                 dp_first, one_first, first_dp, one_semi["metrics"][0],
+                 STEP_GRAD_TOL),
+             "world2_vs_one_process_cudnn": ddp_step_errors(
+                 dp_cudnn["f32"], cudnn_first,
+                 ranks[0]["semi_cudnn"]["metrics"][0],
+                 one_cudnn["metrics"][0], DDP_CUDNN_GRAD_TOL),
+             "world2_vs_one_process_cudnn_f64": ddp_step_errors(
+                 dp_cudnn["f64"], f64_first,
+                 ranks[0]["f64_cudnn"]["metrics"][0],
+                 one_f64["metrics"][0], DDP_F64_GRAD_TOL)}
+    # reported: one process's float32 step (cuDNN on) under input noise
+    # against itself
+    m = one_cudnn["metrics"][0]
+    noise = [ddp_step_errors(n, cudnn_first, m, m, DDP_CUDNN_GRAD_TOL)
+             ["grad_rel_of_step"] for n in noisy]
+    later = [max(abs(rm[k] - o) / max(abs(o), 1e-30) for k, o in om.items())
+             for rm, om in zip(ranks[0]["semi"]["metrics"][1:],
+                               one_semi["metrics"][1:])]
+    out_dp = os.path.join(work, "exp", "semi", "ddp_test", "output")
+    out_one = os.path.join(work, "exp", "semi", "ddp_test_one", "output")
+    hm = read_mrc(os.path.join(out_dp, f"{names[0]}_hm.mrc"))
+    ref = read_mrc(os.path.join(out_one, f"{names[0]}_hm.mrc"))
+    hm_err = float(np.abs(hm - ref).max()) if hm.shape == ref.shape \
+        else math.inf
+    n_differ, outside = pick_mismatches(
+        torch.from_numpy(np.swapaxes(hm, 1, 0).copy()),
+        torch.from_numpy(np.swapaxes(ref, 1, 0).copy()))
+    with open(os.path.join(out_dp, f"{names[0]}.txt"), "rb") as a, \
+            open(os.path.join(out_one, f"{names[0]}.txt"), "rb") as b:
+        txt_equal = a.read() == b.read()
+    reports = [sum(ln.startswith(f"{names[0]}: ") for ln in r["test"]["lines"])
+               for r in ranks]
+    rank_ztap = [r["test"]["ztap_launches"] for r in ranks]
+    rec = {
+        "phase": "ddp", "world": DDP_WORLD, "backend": ranks[0]["backend"],
+        "global_batch": DDP_BATCH, "arch": "unet_4", "crop": [6, 64, 64],
+        "what": "two ranks share one card: correctness, not scaling",
+        "launches": {f"rank{r['rank']}": {"semi": r["semi"]["launches"],
+                                          "pn": r["pn"]["launches"],
+                                          "test_ztap":
+                                              r["test"]["ztap_launches"]}
+                     for r in ranks},
+        "steps": {"semi": DDP_STEPS, "pn": DDP_PN_STEPS},
+        "gram_check_ok": [[r["semi"]["gram_check_ok"],
+                           r["pn"]["gram_check_ok"]] for r in ranks],
+        "step_vs_one_process": steps,
+        "one_process_cudnn_under_input_noise": noise,
+        "later_steps_metric_rel": later,
+        "rank_step_ms": [r["semi"]["step_ms"] for r in ranks],
+        "one_process_step_ms": one_semi["step_ms"],
+        "rank_samples_per_s": [
+            DDP_BATCH * len(r["semi"]["step_ms"][1:])
+            / (1e-3 * sum(r["semi"]["step_ms"][1:])) for r in ranks],
+        "one_process_samples_per_s":
+            DDP_BATCH * len(one_semi["step_ms"][1:])
+            / (1e-3 * sum(one_semi["step_ms"][1:])),
+        "pn_metrics": {"dp": ranks[0]["pn"]["metrics"],
+                       "one": one_pn["metrics"]},
+        "test": {"tile": DDP_TILE, "hm_max_abs": hm_err,
+                 "hm_tol": DDP_HM_TOL, "picks_differ": n_differ,
+                 "picks_outside_band": len(outside), "txt_equal": txt_equal,
+                 "rank_ztap_launches": rank_ztap,
+                 "one_process_ztap_launches":
+                     one_launches["ztap_dilated_conv"],
+                 "reports_by_rank": reports,
+                 "rank_wall_s": [r["test"]["wall_s"] for r in ranks],
+                 "one_process_wall_s": one_wall},
+        "nccl_world1": {"backend": nccl_res["backend"],
+                        "launches": nccl_res["semi"]["launches"]},
+        "dryrun_multichip": {"rc": dry.returncode,
+                             "ok_line": next((ln for ln in
+                                              dry.stdout.splitlines()
+                                              if "dryrun_multichip(" in ln),
+                                             None)},
+        "wall_s": time.perf_counter() - t_phase,
+    }
+    emit(rec)
+    bad = []
+    for r in ranks:
+        for key, n in (("semi", DDP_STEPS), ("pn", DDP_PN_STEPS),
+                       ("semi_cudnn", 1), ("f64_cudnn", 0)):
+            got = r[key]["launches"]
+            if got["fwd"] != n or got["bwd"] != n:
+                bad.append(f"rank {r['rank']} {key} gram launches {got}")
+    if failures or not all(all(c) for c in rec["gram_check_ok"]):
+        bad.append(f"gram checks {failures}")
+    bad += [f"{k} step {v}" for k, v in steps.items() if not v["ok"]]
+    if nccl_res["backend"] != "nccl" or \
+            nccl_res["semi"]["launches"]["fwd"] != 1:
+        bad.append(f"nccl world 1: {rec['nccl_world1']}")
+    if not hm_err <= DDP_HM_TOL or outside:
+        bad.append(f"test --mesh_shape: hm {hm_err}, {len(outside)} picks "
+                   f"outside the band")
+    if sum(rank_ztap) != one_launches["ztap_dilated_conv"] \
+            or min(rank_ztap) == 0 or reports != [1, 0]:
+        bad.append(f"test --mesh_shape: z-tap launches {rank_ztap} against "
+                   f"{one_launches['ztap_dilated_conv']}, reports {reports}")
+    if dry.returncode != 0 or rec["dryrun_multichip"]["ok_line"] is None \
+            or not rec["dryrun_multichip"]["ok_line"].endswith("OK"):
+        bad.append(f"dryrun_multichip: {dry.returncode} "
+                   f"{dry.stdout[-2000:]} {dry.stderr[-2000:]}")
+    if bad:
+        raise RuntimeError(f"ddp: {bad}")
+    return rec
+
+
 # few-shot picking, blind-spot denoising and the cryoDRGN tools. fewshot
 # runs at its defaults (unet_4, 10x128x128 crops, batch 1, contrastive, 3
 # clusters, lr 1e-3) on the explore recs, FS_EPOCHS epochs of FS_ITERS
 # steps; its one-step check holds the card to the CPU (tests/
 # test_torch_fewshot.py's bars): the loss and both terms within 1e-5, the
 # centres within 1e-5, the k-means assignments equal on >= 99.9% of the
-# pixels, and the step itself (``step_errors``): each gradient within
-# its bar of its tensor's largest, and each parameter after Adam
+# pixels, and the step itself (``step_errors``): the gradients within
+# their bars (in float32 of the step's largest, in float64 of each
+# tensor's largest), and each parameter after Adam
 # within 1e-5 of max(1, its tensor's largest) where the CPU's float64
 # gradient lies beyond ADAM_SIGN_RES of that tensor's largest and beyond
 # ADAM_EPS_RES.
@@ -3273,8 +3669,24 @@ FS_AGREE = 0.999
 # 32x32 shapes 2.7e-4 against 8e-6); the denoise steps 1.2e-4 to 1.6e-4
 # on both (NVIDIA H100 80GB HBM3; PERF.md section 6). A wrong backward pass
 # is off by more than a hundredth of a tensor's largest; the exploration
-# steps' bar is a tenth (EXPLORE_GRAD_TOL)
+# steps' bar is a tenth (EXPLORE_GRAD_TOL).
+# The fs step is gated otherwise, since its float32 gradient is itself
+# sensitive: per tensor, one trained state's f32 step lay 2.2e-4 from
+# float64 on both devices, and 3.1e-3 to 4.6e-3 (CPU) and 7.5e-3 to 1.1e-2
+# (card) under a 1e-7 relative change of its input, while the same step in
+# float64 on the card equalled the CPU's float64 within 4.3e-14 (NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md section 6). So the card's fs step runs
+# in float64 too and is held there within STEP_F64_GRAD_TOL of each
+# tensor's largest, and its float32 gradients within STEP_GRAD_TOL plus
+# twice the CPU's f32 distance from float64, both of the step's largest
+# gradient (as the ddp phase holds its float32 steps)
 STEP_GRAD_TOL = 1e-2
+STEP_F64_GRAD_TOL = 1e-9
+# reported: the trained fs step in f32 on each device against the CPU's
+# float64 when its input moves by FS_NOISE of its largest, FS_NOISE_SEEDS
+# draws
+FS_NOISE = 1e-7
+FS_NOISE_SEEDS = 2
 # Adam's first step moves a weight by lr g / (|g| + eps), about lr times
 # the gradient's sign: where the float64 gradient lies within this share of
 # its tensor's largest (four times the card's worst distance from float64
@@ -3326,7 +3738,7 @@ def write_fewshot_data(work, planted):
             for n, cs in planted.items() for x, y, z, cls in cs))
 
 
-def step_errors(card, cpu, cpu64):
+def step_errors(card, cpu, cpu64, card64=None):
     """The worst errors of one optimizer step, card f32 against CPU f32,
     each run a dict with ``grads`` (the gradients the optimizer saw) and
     ``state`` (the state dict after the step); ``cpu64``, the same step in
@@ -3341,16 +3753,24 @@ def step_errors(card, cpu, cpu64):
     BN running statistics of each tensor's largest. A tensor whose float64
     gradient is zero but for rounding (ZERO_GRAD) is listed, and its
     gradient held of the step's largest (``zero_grad_rel``), its Adam step
-    (lr times the sign of rounding) not at all."""
+    (lr times the sign of rounding) not at all. With ``card64``, the same
+    step in float64 on the card: its gradients are held to ``cpu64``'s
+    within STEP_F64_GRAD_TOL of each tensor's largest (of the step's for a
+    ZERO_GRAD tensor; ``grad_f64_rel``),
+    and the f32 gradients and ``grad_bar`` are taken of the step's largest
+    (``grad_rel_of_step``; the per-tensor readings are reported)."""
     def max0(t):
         return float(t.max()) if t.numel() else 0.0
 
     g64s = cpu64["grads"]
     top = max(float(g.abs().max()) for g in g64s.values())
     out = {"grad_rel": 0.0, "grad_rel_cpu_vs_f64": 0.0,
-           "grad_rel_card_vs_f64": 0.0, "param_rel": 0.0,
+           "grad_rel_card_vs_f64": 0.0, "grad_rel_of_step": 0.0,
+           "grad_rel_cpu_vs_f64_of_step": 0.0, "param_rel": 0.0,
            "near0_max_abs": 0.0, "near0": 0, "bn_rel": 0.0,
            "zero_grad_tensors": [], "zero_grad_rel": 0.0}
+    if card64 is not None:
+        out["grad_f64_rel"] = 0.0
     for k, want in cpu["state"].items():
         if not want.is_floating_point():
             continue
@@ -3358,7 +3778,11 @@ def step_errors(card, cpu, cpu64):
         if k in g64s:
             g64 = g64s[k]
             scale = float(g64.abs().max())
-            if scale <= ZERO_GRAD * top:
+            zero = scale <= ZERO_GRAD * top
+            if card64 is not None:
+                out["grad_f64_rel"] = max(out["grad_f64_rel"], _rel_err(
+                    card64["grads"][k], g64, top if zero else scale))
+            if zero:
                 out["zero_grad_tensors"].append(k)
                 out["zero_grad_rel"] = max(out["zero_grad_rel"], _rel_err(
                     card["grads"][k], cpu["grads"][k], top))
@@ -3368,6 +3792,9 @@ def step_errors(card, cpu, cpu64):
                               ("grad_rel_card_vs_f64", card["grads"][k],
                                g64)):
                 out[key] = max(out[key], _rel_err(a, b))
+                if key != "grad_rel_card_vs_f64":
+                    out[key + "_of_step"] = max(out[key + "_of_step"],
+                                                _rel_err(a, b, top))
             near0 = (g64.abs() <= ADAM_SIGN_RES * scale) \
                 | (g64.abs() < ADAM_EPS_RES)
             d = (got - want).abs()
@@ -3377,8 +3804,10 @@ def step_errors(card, cpu, cpu64):
             out["near0"] += int(near0.sum())
         elif "running" in k:
             out["bn_rel"] = max(out["bn_rel"], _rel_err(got, want))
-    out["grad_bar"] = STEP_GRAD_TOL + 2 * out["grad_rel_cpu_vs_f64"]
-    out["ok"] = (out["grad_rel"] <= out["grad_bar"]
+    of = "" if card64 is None else "_of_step"
+    out["grad_bar"] = STEP_GRAD_TOL + 2 * out["grad_rel_cpu_vs_f64" + of]
+    out["ok"] = (out["grad_rel" + of] <= out["grad_bar"]
+                 and out.get("grad_f64_rel", 0.0) <= STEP_F64_GRAD_TOL
                  and out["zero_grad_rel"] <= STEP_GRAD_TOL
                  and out["param_rel"] <= FS_TOL and out["bn_rel"] <= FS_TOL)
     return out
@@ -3523,18 +3952,20 @@ def lloyd_float64():
 
 def fewshot_step_check(cfg, sd0, batch, centers, cpu64=None, lloyd64=False):
     """One fs step from ``sd0`` and ``centers`` on the card and on the CPU
-    (with ``lloyd64``, both with the Lloyd loop in float64), and in float64
-    on the CPU (``cpu64``, where given, is that run): the errors, whether
-    they hold the bars, and the float64 run."""
+    (with ``lloyd64``, both with the Lloyd loop in float64), in float64 on
+    the card, and in float64 on the CPU (``cpu64``, where given, is that
+    run): the errors, whether they hold the bars, and the float64 run."""
     with lloyd_float64() if lloyd64 else contextlib.nullcontext():
         card = fewshot_step_run(cfg, sd0, batch, centers, DEVICE,
                                 torch.float32)
         cpu = fewshot_step_run(cfg, sd0, batch, centers, "cpu",
                                torch.float32)
+        card64 = fewshot_step_run(cfg, sd0, batch, centers, DEVICE,
+                                  torch.float64)
     if cpu64 is None:
         cpu64 = fewshot_step_run(cfg, sd0, batch, centers, "cpu",
                                  torch.float64)
-    errs = step_errors(card, cpu, cpu64)
+    errs = step_errors(card, cpu, cpu64, card64)
     rec = {"lloyd": "float64" if lloyd64 else "float32",
            "metrics_card": card["metrics"], "metrics_cpu": cpu["metrics"],
            "metric_err": max(abs(card["metrics"][k] - cpu["metrics"][k])
@@ -3552,6 +3983,32 @@ def fewshot_step_check(cfg, sd0, batch, centers, cpu64=None, lloyd64=False):
     return rec, cpu64
 
 
+def fewshot_noise_readings(cfg, sd0, batch, centers, cpu64):
+    """The f32 step's gradients on the CPU and on the card, from ``batch``
+    with FS_NOISE of its input's largest added (FS_NOISE_SEEDS draws),
+    against ``cpu64`` (the unmoved step in float64): the worst of each
+    tensor's largest (ZERO_GRAD tensors left out) and of the step's."""
+    g64s = cpu64["grads"]
+    top = max(float(g.abs().max()) for g in g64s.values())
+    live = [k for k, g in g64s.items()
+            if float(g.abs().max()) > ZERO_GRAD * top]
+    x = batch["input"]
+    out = []
+    for seed in range(FS_NOISE_SEEDS):
+        noise = np.random.default_rng(100 + seed).standard_normal(x.shape)
+        moved = dict(batch, input=(x + FS_NOISE * float(np.abs(x).max())
+                                   * noise).astype(x.dtype))
+        for device in ("cpu", DEVICE):
+            g = fewshot_step_run(cfg, sd0, moved, centers, device,
+                                 torch.float32)["grads"]
+            out.append({"device": device, "seed": seed,
+                         "grad_rel": max(_rel_err(g[k], g64s[k])
+                                         for k in live),
+                         "grad_rel_of_step": max(_rel_err(g[k], g64s[k], top)
+                                                 for k in g64s)})
+    return out
+
+
 def phase_fewshot_step(ds):
     """One fs step at the defaults (unet_4, a 10x128x128 crop) on the card
     and on the CPU from one state, batch and centres: gated from the
@@ -3559,17 +4016,22 @@ def phase_fewshot_step(ds):
     reported (not gated) from the seeded initial weights with their cold
     centres, where the prototypes lie close together and f32 rounding
     flips near-tied assignments, with the Lloyd loop in f32 (as JAX runs
-    it) and in float64."""
+    it) and in float64; and the trained step under input noise
+    (``fewshot_noise_readings``, reported)."""
     from cet_pick_tpu_torch.models.convert import load_checkpoint
     from cet_pick_tpu_torch.train.fewshot import init_fewshot_centers
 
     cfg = ds.config
     batch = ds.sample_batch(np.random.default_rng(3), range(1))
     t0 = time.perf_counter()
-    trained, _ = fewshot_step_check(
-        cfg, load_checkpoint(os.path.join(cfg.save_dir, "model_last.pth")),
-        batch, torch.from_numpy(np.load(os.path.join(
-            cfg.save_dir, "cluster_centers.npy"))))
+    sd_trained = load_checkpoint(os.path.join(cfg.save_dir,
+                                              "model_last.pth"))
+    trained_centers = torch.from_numpy(np.load(os.path.join(
+        cfg.save_dir, "cluster_centers.npy")))
+    trained, trained64 = fewshot_step_check(cfg, sd_trained, batch,
+                                            trained_centers)
+    noise = fewshot_noise_readings(cfg, sd_trained, batch, trained_centers,
+                                   trained64)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         sd0 = create_detector(cfg).state_dict()
@@ -3582,11 +4044,14 @@ def phase_fewshot_step(ds):
     seeded64, _ = fewshot_step_check(cfg, sd0, batch, centers, cpu64,
                                      lloyd64=True)
     rec = {"phase": "fewshot_step", "trained": trained,
+           "trained_f32_under_input_noise_reported": noise,
            "seeded_init_reported": seeded,
            "seeded_init_lloyd_float64_reported": seeded64,
            "bars": {"metrics": FS_TOL, "centers": FS_TOL, "assign": FS_AGREE,
                     "params": FS_TOL,
-                    "grads": "STEP_GRAD_TOL + 2 grad_rel_cpu_vs_f64"},
+                    "grads": "STEP_GRAD_TOL + 2 grad_rel_cpu_vs_f64_of_step, "
+                             "of the step's largest",
+                    "grads_float64": STEP_F64_GRAD_TOL},
            "wall_s": time.perf_counter() - t0}
     emit(rec)
     if not trained["ok"]:
@@ -4112,10 +4577,19 @@ def main(argv=None):
              "as the card runs it and as many under "
              "torch.use_deterministic_algorithms (denoise_runs), in place "
              "of the smoke run")
+    parser.add_argument("--ddp-rank", action="store_true",
+                        help=argparse.SUPPRESS)  # a rank of the ddp phase
+    parser.add_argument("--ddp-backend", default="gloo",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--ddp-work", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
+    if args.ddp_rank:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return ddp_rank(args.ddp_backend, args.ddp_work)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi, name = phase_card()
@@ -4160,8 +4634,11 @@ def main(argv=None):
         t_phase = time.perf_counter()
         _, debug_launches = phase_debug(work, names)
         walls["debug"] = time.perf_counter() - t_phase
-        phase_main_path(work, names, planted, phase="main_path_last",
-                        ckpt="model_last.pth", gate=False)
+        # the ddp phase's wall is made up by dropping three report-only
+        # runs: test on the main path's and on unetw_3's model_last.pth,
+        # and classify_test_ge
+        ddp_rec = phase_ddp(work, names)
+        walls["ddp"] = ddp_rec["wall_s"]
         phase_breakdown(os.path.join(work, "exp", "semi", "default",
                                      "model_best.pth"))
         cr_launches = phase_train_supervised(work)
@@ -4171,9 +4648,6 @@ def main(argv=None):
         phase_train_breakdown(work, "unetw_3")
         unetw_rec = phase_main_path(work, names, planted, "unetw_3", "unetw",
                                     phase="unetw_test")
-        phase_main_path(work, names, planted, "unetw_3", "unetw",
-                        phase="unetw_test_last", ckpt="model_last.pth",
-                        gate=False)
         phase_breakdown(os.path.join(work, "exp", "semi", "unetw",
                                      "model_best.pth"), "unetw_3")
         _, sc_launches = phase_train_semiclass(work)
@@ -4181,12 +4655,6 @@ def main(argv=None):
         cls_pn = phase_classify_test(work, names, planted,
                                      "train_semiclass_pn", "classify_test",
                                      gate=True)
-        # report-only, one volume (both until the --debug phases): its
-        # greedy NMS visits ~1.2M candidates a volume on the host
-        cls_ge = phase_classify_test(work, names[:1],
-                                     {names[0]: planted[names[0]]},
-                                     "train_semiclass", "classify_test_ge",
-                                     gate=False, listing="one_image.txt")
         _, semi3d_train = phase_train_semi3d(work)
         semi3d_rec = phase_main_path(work, names, planted, "res3d_2",
                                      "semi3d", phase="semi3d_test",
@@ -4248,9 +4716,8 @@ def main(argv=None):
                         "ztap_dilated_conv"],
                     launches_in_test_profile=profile_rec["launches"][
                         "ztap_dilated_conv"],
-                    launches_in_classify_test=[
-                        r["launches"]["ztap_dilated_conv"]
-                        for r in (cls_pn, cls_ge)],
+                    launches_in_classify_test=cls_pn["launches"][
+                        "ztap_dilated_conv"],
                     launches_in_semiclass_train=[
                         r["ztap_dilated_conv"]
                         for r in (sc_launches, sc_pn_launches)],
@@ -4261,7 +4728,9 @@ def main(argv=None):
                         for k in ("imported_dir", "exported_pth")],
                     launches_in_debug_train=debug_launches[
                         "ztap_dilated_conv"],
-                    launches_in_graft_entry=graft_rec["launches"]),
+                    launches_in_graft_entry=graft_rec["launches"],
+                    launches_in_ddp_test_by_rank=ddp_rec["test"][
+                        "rank_ztap_launches"]),
         _ztap_entry("ztap_dilated_conv[C=F=128]", ztap["unetw"],
                     unetw_rec["launches"]["ztap_dilated_conv"],
                     unetw_train["ztap_dilated_conv"]),
@@ -4269,19 +4738,24 @@ def main(argv=None):
                     semi3d_rec["launches"]["ztap_dilated_conv"],
                     semi3d_train["ztap_dilated_conv"]),
     ]
+    ddp_launches = ddp_rec["launches"]
     kernels += _gram_entries("gram_row_stats", gram["row"],
                              train_launches["gram_row_stats"], 92, 109,
                              {"launches_in_freeze":
                               freeze_launches["gram_row_stats"],
                               "launches_in_debug_train":
-                              debug_launches["gram_row_stats"]})
+                              debug_launches["gram_row_stats"],
+                              **{f"launches_in_ddp_{r}": v["semi"]
+                                 for r, v in ddp_launches.items()}})
     kernels += _gram_entries("gram_row_stats[C=128]", gram["row_c128"],
                              unetw_train["gram_row_stats"], 92, 109)
     kernels += _gram_entries("gram_row_stats[B=8,semiclass]",
                              gram["row_semiclass"],
                              sc_launches["gram_row_stats"], 92, 109)
     kernels += _gram_entries("gram_logit_stats", gram["logit"],
-                             pn_launches["gram_logit_stats"], 244, 260)
+                             pn_launches["gram_logit_stats"], 244, 260,
+                             {f"launches_in_ddp_{r}": v["pn"]
+                              for r, v in ddp_launches.items()})
     kernels += _gram_entries("gram_logit_stats[B=8,semiclass]",
                              gram["logit_semiclass"],
                              sc_pn_launches["gram_logit_stats"], 244, 260)

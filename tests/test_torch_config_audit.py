@@ -20,9 +20,9 @@ OBSOLETE = {"last_k", "dataset", "num_workers"}
 DERIVED = {"heads", "exp_dir", "save_dir", "debug_dir", "out_path"}
 # user flags whose consumer is finalize() itself
 CONSUMED_IN_FINALIZE = {"exp_id", "out_id", "root_dir"}
-# the JAX package's device mesh: the port runs on one device and ignores it
-# until DDP is ported (ROADMAP Queue 1 item 6)
-NOT_YET_READ = {"mesh_shape"}
+# fields the port accepts and does not read yet: none (mesh_shape is read
+# by parallel/dist.py since data parallelism was ported)
+NOT_YET_READ = set()
 EXEMPT = OBSOLETE | DERIVED | CONSUMED_IN_FINALIZE | NOT_YET_READ
 
 

@@ -434,3 +434,39 @@ def test_step_check_holds_weights_where_adam_steps_by_sign():
     flipped = dict(cpu, a=torch.tensor([1.0, -0.5]))
     out = chip_smoke.step_errors(run(flipped), run(cpu), {"grads": g64})
     assert out["param_rel"] > 1e-3 and not out["ok"]
+
+
+def test_step_check_holds_float32_of_the_step_and_float64_per_tensor():
+    """With the card's float64 step (``card64``), ``chip_smoke.step_errors``
+    holds the float32 gradients of the step's largest, so a small tensor's
+    float32 rounding (a few hundredths of its own largest in a saturated fs
+    state) passes, and holds the float64 gradients within 1e-9 of each
+    tensor's largest, so the same tensor off by 1e-6 in float64 fails."""
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+
+    def run(grads):
+        return {"grads": grads, "state": {
+            k: -1e-3 * torch.sign(g) for k, g in grads.items()}}
+
+    g64 = {"a": torch.tensor([1.0, 0.5], dtype=torch.float64),
+           "b": torch.tensor([1e-3, -4e-4], dtype=torch.float64)}
+    cpu = {k: v.float() for k, v in g64.items()}
+    card = dict(cpu, b=torch.tensor([1.05e-3, -4e-4]))
+    out = chip_smoke.step_errors(run(card), run(cpu), {"grads": g64})
+    assert out["grad_rel"] > out["grad_bar"] and not out["ok"]
+    out = chip_smoke.step_errors(run(card), run(cpu), {"grads": g64},
+                                 {"grads": dict(g64)})
+    assert out["grad_rel"] > 4e-2 and out["grad_rel_of_step"] < 1e-4
+    assert out["grad_f64_rel"] == 0.0 and out["ok"]
+    card64 = dict(g64, b=g64["b"] * (1 + 1e-6))
+    out = chip_smoke.step_errors(run(card), run(cpu), {"grads": g64},
+                                 {"grads": card64})
+    assert out["grad_f64_rel"] > chip_smoke.STEP_F64_GRAD_TOL
+    assert not out["ok"]
