@@ -128,8 +128,12 @@ directory (``state.msgpack``). ``--device {cuda,cpu}`` picks the device
 (default cuda; asking for cuda without one raises); every command takes
 it, and the host ones (``merge``, ``pr-curve``, ``remove-golds``,
 ``gen-files``, ``flags``, ``import-torch``, ``export-torch``) compute
-nothing on a device. Every command of ``python -m cet_pick_tpu`` is ported;
-``--dtype bfloat16`` is not yet, and exits non-zero.
+nothing on a device. Every command of ``python -m cet_pick_tpu`` is ported.
+``--dtype bfloat16`` runs the detector family (``train``, ``test``,
+``classify``, ``classify-test``, ``watch``, ``fewshot``; float32
+parameters, heads and losses, the bf16 z-tap kernel on the card); the
+exploration encoders (``explore``, ``moco``, ``embed``, ``scan-finetune``)
+and ``denoise`` run float32 only and exit 2 under it.
 """
 
 from __future__ import annotations
@@ -170,8 +174,8 @@ def _host_parser(prog, computes=False):
 
 
 def _not_float32(prog, cfg):
-    """True, with the message, where ``--dtype`` asks for what is not ported
-    yet (bfloat16)."""
+    """True, with the message, where ``--dtype`` asks a command that runs
+    float32 only (the exploration encoders and denoise) for bfloat16."""
     if cfg.dtype == "float32":
         return False
     cmd = prog.split()[-1]
@@ -200,8 +204,6 @@ def cmd_train(argv):
     args = _parser("cet_pick_tpu_torch train",
                    Config(task="semi", contrastive=True)).parse_args(argv)
     cfg = config_from_args(args)
-    if _not_float32("cet_pick_tpu_torch train", cfg):
-        return 2
     if cfg.task not in TRAIN_TASKS:
         print(f"train --task {cfg.task!r} is not yet ported to "
               f"cet_pick_tpu_torch (it trains --task "
@@ -283,7 +285,8 @@ EXPLORE_TASKS = ("simsiam2d3d", "simsiam3d", "simsiam", "moco")
 
 def _explore_config(prog, defaults, argv):
     """(args, config) of ``explore`` / ``moco`` / ``embed``; None where the
-    task or the dtype asks for what is not ported yet (bfloat16)."""
+    task or the dtype asks for what is not ported yet (bfloat16: item 5b of
+    the port's roadmap)."""
     args = _parser(prog, defaults).parse_args(argv)
     cfg = config_from_args(args)
     if cfg.task not in EXPLORE_TASKS or cfg.dtype != "float32":
@@ -459,6 +462,8 @@ def cmd_scan_finetune(argv):
     parser.add_argument("--selflabel_threshold", type=float, default=0.99)
     a = parser.parse_args(argv)
     cfg = config_from_args(a)
+    if _not_float32(parser.prog, cfg):
+        return 2
     if not cfg.load_model:
         raise SystemExit("--load_model: trained simsiam checkpoint required")
     from cet_pick_tpu_torch.models.simsiam import explore_mode
@@ -723,8 +728,6 @@ def cmd_fewshot(argv):
                              "detection txts after training")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-    if _not_float32(parser.prog, cfg):
-        return 2
     for f in (cfg.train_img_txt, cfg.train_coord_txt):
         if not os.path.exists(os.path.join(cfg.data_dir, f)):
             raise FileNotFoundError(os.path.join(cfg.data_dir, f))

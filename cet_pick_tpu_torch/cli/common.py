@@ -59,8 +59,10 @@ FLAG_GROUPS = (
                      "(32 detection, 128 exploration/SCAN)",
         "down_ratio": "output stride of the detection heatmap (the stem's "
                       "stride-2 conv); picks are rescaled back by it",
-        "dtype": "model compute dtype; the port runs `float32` only so far "
-                 "(TF32 off, so convolutions keep full f32 precision)",
+        "dtype": "model compute dtype: `float32` (TF32 off, so "
+                 "convolutions keep full f32 precision) or `bfloat16` for "
+                 "the detectors (float32 parameters, heads and losses); the "
+                 "exploration encoders and denoise run float32 only",
     }),
     ("Training", {
         "lr": "learning rate",

@@ -64,10 +64,12 @@ def resolve_device(device) -> torch.device:
 
 
 def set_float32_precision(dtype: str):
-    """Under ``float32`` keep convolutions and matmuls in full f32: cuDNN's
-    f32 convs default to TF32 (about 3 decimal digits), and the port is held
-    to f32 parity with the JAX package."""
-    if dtype == "float32":
+    """Keep float32 convolutions and matmuls in full f32: cuDNN's f32 convs
+    default to TF32 (about 3 decimal digits), and the port is held to f32
+    parity with the JAX package. Under ``bfloat16`` too: the heads, losses
+    and the bf16 z-tap's plain version (f32 sums of bf16 values) stay f32,
+    as they do in JAX."""
+    if dtype in ("float32", "bfloat16"):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -86,14 +86,27 @@ def check_untiled_fits(model, shape, device, xy_budget=None, views=1):
                      * _free_device_bytes(device)
                      if torch.device(device).type == "cuda" else math.inf)
     d, h, w = (int(s) for s in shape[-3:])
-    need = views * d * h * w * float(getattr(
-        model, "bytes_per_voxel", TiledHeatmapInference.BYTES_PER_VOXEL))
+    need = views * d * h * w * bytes_per_voxel(model)
     if need > xy_budget:
         raise MemoryError(
             f"a {d}x{h}x{w} volume needs about {need / 2**30:.1f} GiB for "
             f"this model's untiled forward, over its budget of "
             f"{xy_budget / 2**30:.1f} GiB; the forward is not tiled: crop "
             f"the volume")
+
+
+def bytes_per_voxel(model) -> float:
+    """Peak device bytes per input voxel of ``model``'s forward in its
+    compute dtype (``model.dtype``, float32 where it has none): its own
+    ``bytes_per_voxel`` / ``bytes_per_voxel_bf16``, else the unet_N values
+    below. The JAX package keeps one constant whatever the dtype
+    (cet_pick_tpu/infer/tiled.py:80); here each dtype has its measured
+    one (ROADMAP Queue 3)."""
+    if getattr(model, "dtype", torch.float32) == torch.bfloat16:
+        return float(getattr(model, "bytes_per_voxel_bf16",
+                             TiledHeatmapInference.BYTES_PER_VOXEL_BF16))
+    return float(getattr(model, "bytes_per_voxel",
+                         TiledHeatmapInference.BYTES_PER_VOXEL))
 
 
 class TiledHeatmapInference:
@@ -106,6 +119,11 @@ class TiledHeatmapInference:
     # count of live tensors alone gives ~160. Rounded up for headroom. A
     # model with a ``bytes_per_voxel`` attribute (unetw_N) sets its own.
     BYTES_PER_VOXEL = 320.0
+    # The same under bfloat16: chip_smoke.py measured 164.0-166.0 for
+    # unet_4 (its ``bf16_models`` and ``bf16_test`` phases, H100 80GB HBM3,
+    # 700 W): the bf16 activations, and the float32 copies BatchNorm's f32
+    # arithmetic makes of one tensor at a time. Rounded up as the f32 one.
+    BYTES_PER_VOXEL_BF16 = 180.0
     # share of the device's free memory the fused window batch may take
     MEMORY_FRACTION = 0.5
 
@@ -134,8 +152,7 @@ class TiledHeatmapInference:
                          if self.device.type == "cuda" else math.inf)
         self.xy_budget = float(xy_budget)
         self.xy_down = model.stem_stride
-        self.bytes_per_voxel = float(
-            getattr(model, "bytes_per_voxel", self.BYTES_PER_VOXEL))
+        self.bytes_per_voxel = bytes_per_voxel(model)
         if not self.untiled:
             self.xy_halo = xy_halo(model.n_blocks, self.xy_down)
             self.xy_align = xy_align(model.n_blocks, self.xy_down)

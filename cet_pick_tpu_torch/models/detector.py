@@ -26,6 +26,14 @@ Layout: the trunk runs NCHW with z folded into the batch; the head works
 channels-last, which is what the z-tap kernel takes. The public
 ``forward`` keeps the JAX layout: input ``(B, D, H, W)``, output
 ``{head: (B, D, H//s, W//s, C)}`` with s = ``stem_stride``.
+
+Compute dtype (``dtype``, from ``--dtype``; JAX detector.py:233, 262,
+337-344): the input is cast to it, every layer runs in it with flax's
+rounding points (``models/unet.run_conv``, ``BatchNorm2d``; the z-tap in
+``ops/ztap_conv``), and every head is cast to float32 at its output, so
+that the losses, the decode and the gram kernels see float32. The
+parameters stay float32 under either dtype: optimizer state and
+checkpoints are the same.
 """
 
 from __future__ import annotations
@@ -37,11 +45,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from cet_pick_tpu_torch.models.flax_init import flax_init_, lecun_normal_
-from cet_pick_tpu_torch.models.unet import BatchNorm2d, UNet2D
+from cet_pick_tpu_torch.models.unet import BatchNorm2d, UNet2D, run_conv
 from cet_pick_tpu_torch.ops.ztap_conv import (
     ztap_dilated_conv,
     ztap_dilated_conv_plain,
 )
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class _Stem(nn.Conv2d):
@@ -49,7 +60,8 @@ class _Stem(nn.Conv2d):
 
     The JAX package lowers it through a space-to-depth phase conv
     (detector.py:82-134), a TPU-only trick for MXU occupancy; a plain
-    ``Conv2d`` computes the same sums."""
+    ``Conv2d`` computes the same sums (under bfloat16 the bf16 rounding of
+    the same f32 sums of the bf16 input and kernel, ``run_conv``)."""
 
     def __init__(self, features: int = 16):
         super().__init__(1, features, 7, stride=2, padding=3, bias=False)
@@ -73,7 +85,8 @@ class _ZTapDilatedConv(nn.Module):
         return self.weight.permute(2, 3, 4, 1, 0).contiguous()
 
     def forward(self, x, relu: bool = False):
-        """x: (B, D, H, W, C) -> (B, D, H, W, F), differentiable."""
+        """x: (B, D, H, W, C) -> (B, D, H, W, F) of x's dtype,
+        differentiable."""
         return ztap_dilated_conv_plain(x, self.kernel(),
                                        dilation=self.dilation, relu=relu)
 
@@ -82,9 +95,10 @@ class FeatureHead3D(nn.Module):
     """Two dilated 3D convs, each followed by ReLU (unet_small.py:39-49).
 
     In eval mode each layer is one call of the fused z-tap kernel
-    (``ops/ztap_conv.ztap_dilated_conv``: the CUDA kernel on the card, its
-    plain version on the CPU). In train mode it runs the plain z-tap form
-    with autograd, as the JAX package trains through its XLA form.
+    (``ops/ztap_conv.ztap_dilated_conv``: the CUDA kernel of x's dtype on
+    the card, its plain version on the CPU). In train mode it runs the plain
+    z-tap form with autograd, as the JAX package trains through its XLA
+    form.
 
     The two convs are the children ``0`` and ``2``, the indices of the
     reference's ``Sequential(conv, ReLU, conv, ReLU)``."""
@@ -106,7 +120,10 @@ class FeatureHead3D(nn.Module):
 
 class _Detector(nn.Module):
     """Stem + slice-wise 2D UNet + dilated 3D head + per-task heads; the
-    subclasses build the stem, the trunk and ``feature_head``."""
+    subclasses build the stem, the trunk and ``feature_head``. ``dtype``
+    is the compute dtype (module docstring)."""
+
+    dtype = torch.float32
 
     def _add_heads(self, heads, head_conv):
         self.heads = dict(heads)
@@ -120,6 +137,8 @@ class _Detector(nn.Module):
         active_heads: optional subset of the heads to compute (whole-volume
         picking needs only 'hm')."""
         b, d, h, w = x.shape
+        if self.dtype == torch.bfloat16:
+            x = x.to(self.dtype)
         x = F.relu(self._stem(x.reshape(b * d, 1, h, w)), inplace=True)
         x = self.unet(x)
         hh, ww = x.shape[-2:]
@@ -128,15 +147,19 @@ class _Detector(nn.Module):
         return self._apply_heads(self.feature_head(x), active_heads)
 
     def _apply_heads(self, x, active_heads=None):
-        """Channels-last (B, D, H, W, C) features -> {head: (B, D, H, W, K)};
-        'proj' L2-normalized over its channels."""
+        """Channels-last (B, D, H, W, C) features -> {head: (B, D, H, W,
+        K)}, float32 under bfloat16; 'proj' L2-normalized over its
+        channels."""
         out = {}
         for head in self.heads:
             if active_heads is not None and head not in active_heads:
                 continue
             # k(3,1,1) conv on the channels-last tensor viewed as NCDHW
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3), self._modules[head].weight,
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3),
+                         self._modules[head].weight.to(x.dtype),
                          padding=(1, 0, 0)).permute(0, 2, 3, 4, 1)
+            if y.dtype == torch.bfloat16:
+                y = y.float()
             if "proj" in head:
                 y = y / torch.linalg.vector_norm(
                     y, dim=-1, keepdim=True).clamp_min(1e-12)
@@ -150,8 +173,10 @@ class TomoPickNet(_Detector):
     stem_stride = 2  # output stride; read by infer/tiled for xy geometry
 
     def __init__(self, heads: Dict[str, int], n_blocks: int = 4,
-                 head_conv: int = 32, stem_features: int = 16):
+                 head_conv: int = 32, stem_features: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.n_blocks = n_blocks
         self.conv1 = _Stem(stem_features)
         self.bn1 = BatchNorm2d(stem_features)
@@ -162,7 +187,7 @@ class TomoPickNet(_Detector):
         flax_init_(self)
 
     def _stem(self, x):
-        return self.bn1(self.conv1(x))
+        return self.bn1(run_conv(self.conv1, x))
 
 
 class _PatchStem(nn.Module):
@@ -180,7 +205,7 @@ class _PatchStem(nn.Module):
     def forward(self, x):
         h, w = x.shape[-2:]
         x = F.pad(x, (0, (-w) % 4, 0, (-h) % 4))
-        x = self.mix(self.embed(F.pixel_unshuffle(x, 4)))
+        x = run_conv(self.mix, run_conv(self.embed, F.pixel_unshuffle(x, 4)))
         return x[..., : h // 4, : w // 4]
 
 
@@ -200,10 +225,16 @@ class TomoPickNetW(_Detector):
     # (42.3 GB) would exceed half of an idle 80 GB card (42.1 GB) and tile
     # xy into nine halo-dominated windows.
     bytes_per_voxel = 560.0
+    # The same under bfloat16 (``infer/tiled.bytes_per_voxel``):
+    # chip_smoke.py measured 170.4 for unetw_3 on an idle card (its
+    # ``bf16_models`` phase, H100 80GB HBM3, 700 W); rounded up.
+    bytes_per_voxel_bf16 = 192.0
 
     def __init__(self, heads: Dict[str, int], n_blocks: int = 3,
-                 head_conv: int = 128, width: int = 128):
+                 head_conv: int = 128, width: int = 128,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.n_blocks = n_blocks
         self.stem = _PatchStem(width)
         self.stem_bn = BatchNorm2d(width)
@@ -222,11 +253,11 @@ def create_detector(config) -> _Detector:
     reference models/model.py:65-70 and JAX detector.py:337-373: 'unet_N'
     -> TomoPickNet(n_blocks=N), 'unetw_N' -> TomoPickNetW(n_blocks=N, 3
     without a suffix), 'res3dref_N' -> TomoRes3DRefNet, 'res3d_N' and
-    'p3d_N' -> TomoPickNet3D(n_blocks=N, 4 without a suffix)."""
+    'p3d_N' -> TomoPickNet3D(n_blocks=N, 4 without a suffix), each in the
+    compute dtype of ``--dtype`` but TomoRes3DRefNet, which JAX builds in
+    float32 whatever it says (detector.py:345-351)."""
     arch = config.arch
-    if config.dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {config.dtype}: the port runs float32 only so far")
+    dtype = DTYPES[config.dtype]
     if arch.startswith("res3dref"):
         from cet_pick_tpu_torch.models.detector3d_ref import TomoRes3DRefNet
 
@@ -237,12 +268,12 @@ def create_detector(config) -> _Detector:
         return TomoPickNet3D(
             heads=dict(config.heads),
             n_blocks=int(arch.split("_")[1]) if "_" in arch else 4,
-            head_conv=config.head_conv)
+            head_conv=config.head_conv, dtype=dtype)
     if not arch.startswith("unet"):
         raise ValueError(f"unknown detector arch {arch!r}")
     n_blocks = int(arch.split("_")[1]) if "_" in arch else None
     if arch.startswith("unetw"):
         return TomoPickNetW(heads=dict(config.heads), n_blocks=n_blocks or 3,
-                            head_conv=config.head_conv)
+                            head_conv=config.head_conv, dtype=dtype)
     return TomoPickNet(heads=dict(config.heads), n_blocks=n_blocks or 4,
-                       head_conv=config.head_conv)
+                       head_conv=config.head_conv, dtype=dtype)

@@ -22,6 +22,13 @@ flax's SAME padding of a strided conv is asymmetric: k7 stride 2 over an
 even extent pads (2, 3), not (3, 3), so the stem pads explicitly. flax's
 GroupNorm epsilon is 1e-6 (torch's default is 1e-5).
 
+Under ``--dtype bfloat16`` (``dtype``) the layers run in bf16 with flax's
+rounding points, as ``models/detector.py`` says; GroupNorm takes its
+statistics and arithmetic in float32 and rounds its output (``group_norm``).
+JAX's context convs are direct bf16 convs, rounded once per output; the
+z-tap form rounds each z offset's plane and then each add, at most a bf16
+ulp or two apart (ROADMAP Queue 3).
+
 GroupNorm takes its statistics over a sample's whole extent, so these
 detectors run untiled (``untiled``; infer/tiled.py raises when a volume
 cannot fit rather than tiling it).
@@ -31,13 +38,24 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
 from cet_pick_tpu_torch.models.detector import FeatureHead3D, _Detector
 from cet_pick_tpu_torch.models.flax_init import flax_init_
+from cet_pick_tpu_torch.models.unet import run_conv
 
 GN_EPS = 1e-6  # flax nn.GroupNorm's default
+
+
+def group_norm(gn: nn.GroupNorm, x):
+    """``gn`` at x's dtype, as flax's ``GroupNorm(dtype=...)``: a bfloat16
+    x is normalized in float32 and the output rounded to bf16."""
+    if x.dtype != torch.bfloat16:
+        return gn(x)
+    return F.group_norm(x.float(), gn.num_groups, gn.weight, gn.bias,
+                        gn.eps).to(x.dtype)
 
 
 def same_pad(size: int, kernel: int, stride: int):
@@ -62,9 +80,9 @@ class ResBlock3D(nn.Module):
                      if in_features != features else None)
 
     def forward(self, x):
-        y = F.relu(self.gn1(self.conv1(x)))
-        y = self.gn2(self.conv2(y))
-        residual = x if self.proj is None else self.proj(x)
+        y = F.relu(group_norm(self.gn1, run_conv(self.conv1, x)))
+        y = group_norm(self.gn2, run_conv(self.conv2, y))
+        residual = x if self.proj is None else run_conv(self.proj, x)
         return F.relu(y + residual)
 
 
@@ -80,9 +98,16 @@ class TomoPickNet3D(_Detector):
     # (H100 80GB HBM3, 700 W), rounded up.
     bytes_per_voxel = 160.0
 
+    # The same under bfloat16 (``infer/tiled.bytes_per_voxel``):
+    # chip_smoke.py measured 117.0 for res3d_2 (its ``bf16_models`` phase,
+    # H100 80GB HBM3, 700 W), rounded up.
+    bytes_per_voxel_bf16 = 130.0
+
     def __init__(self, heads: Dict[str, int], n_blocks: int = 2,
-                 head_conv: int = 32, stem_features: int = 16):
+                 head_conv: int = 32, stem_features: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.n_blocks = n_blocks
         self.stem = nn.Conv3d(1, stem_features, (3, 7, 7), stride=(1, 2, 2),
                               bias=False)
@@ -100,8 +125,11 @@ class TomoPickNet3D(_Detector):
         """x: (B, D, H, W) -> {head: (B, D, H', W', C)}."""
         _, _, h, w = x.shape
         ph, pw = same_pad(h, 7, 2), same_pad(w, 7, 2)
-        x = F.pad(x[:, None], (*pw, *ph, 1, 1))
-        x = F.relu(self.stem_gn(self.stem(x)))
+        x = x[:, None]
+        if self.dtype == torch.bfloat16:
+            x = x.to(self.dtype)
+        x = F.pad(x, (*pw, *ph, 1, 1))
+        x = F.relu(group_norm(self.stem_gn, run_conv(self.stem, x)))
         for block in self.blocks:
             x = block(x)
         x = self.context(x.permute(0, 2, 3, 4, 1).contiguous())

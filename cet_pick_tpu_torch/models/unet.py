@@ -11,6 +11,13 @@ Modules keep the reference's attribute names (``down_convs.{i}.conv1``,
 ``norm0``, ..., ``up_convs.{i}.upconv``, ``conv_final``), so a reference
 ``TomoConvUNet`` state dict — and the JAX package's export of one — loads
 with ``strict=True``. Layout is PyTorch's NCHW.
+
+Compute dtype: the layers run at their input's dtype, float32 or bfloat16
+(``--dtype bfloat16``, JAX's ``dtype=`` on every layer, unet.py:23-119),
+with explicit casts where flax rounds (``run_conv``, ``BatchNorm2d``); the
+parameters and running statistics stay float32. ``torch.autocast`` puts
+the roundings elsewhere (batch norm in f32, no rounding after the bias
+add) and is not used.
 """
 
 from __future__ import annotations
@@ -33,12 +40,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``num_batches_tracked`` included) are the stock module's, so reference
     ``.pth`` files load with ``strict=True``. Eval mode is unchanged. In a
     data-parallel step the statistics are the global batch's
-    (``parallel/dist.sync_batch_norm``)."""
+    (``parallel/dist.sync_batch_norm``).
+
+    A bfloat16 input is normalized as flax's ``BatchNorm(dtype=bfloat16)``
+    does it: statistics and arithmetic in float32 from the bf16 values, the
+    output rounded to bf16; the running statistics stay float32."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=0.1)
 
     def forward(self, x):
+        if x.dtype == torch.bfloat16:
+            return self.forward(x.float()).to(x.dtype)
         if not self.training:
             return super().forward(x)
         if is_synced():
@@ -52,12 +65,34 @@ class BatchNorm2d(nn.BatchNorm2d):
                             training=True, eps=self.eps)
 
 
+def run_conv(conv, x):
+    """A stock convolution module (``nn.Conv2d`` / ``nn.Conv3d`` /
+    ``nn.ConvTranspose2d``) at x's dtype, as flax's ``nn.Conv(dtype=...)``
+    runs: float32 (or float64) x takes the module itself; bfloat16 x is
+    convolved with the float32 weight cast to bf16, the result is bf16 (the
+    rounding of its f32 sums), and the bias, cast to bf16, is added after
+    it and rounded."""
+    if x.dtype != torch.bfloat16:
+        return conv(x)
+    w = conv.weight.to(x.dtype)
+    if isinstance(conv, nn.ConvTranspose2d):
+        y = F.conv_transpose2d(x, w, None, conv.stride, conv.padding,
+                               conv.output_padding, conv.groups,
+                               conv.dilation)
+    else:
+        y = conv._conv_forward(x, w, None)
+    if conv.bias is not None:
+        y = y + conv.bias.to(x.dtype).reshape((-1,) + (1,) * (y.dim() - 2))
+    return y
+
+
 def ConvNormAct(conv: nn.Conv2d, norm: nn.BatchNorm2d, x):
-    """3x3 conv -> BatchNorm -> ReLU (JAX ``ConvNormAct``, unet.py:23-43).
+    """3x3 conv -> BatchNorm -> ReLU (JAX ``ConvNormAct``, unet.py:23-43),
+    at x's dtype.
 
     A function over the block's own conv and norm, so that the state dict
     keeps the reference's flat names (``conv1``/``norm0``, ...)."""
-    return F.relu(norm(conv(x)), inplace=True)
+    return F.relu(norm(run_conv(conv, x)), inplace=True)
 
 
 def _conv3x3(cin, cout):
@@ -108,7 +143,8 @@ class UpBlock(nn.Module):
 
 
 class UNet2D(nn.Module):
-    """n_blocks-deep 2D U-Net, start_filts * 2^i channels per level."""
+    """n_blocks-deep 2D U-Net, start_filts * 2^i channels per level; runs
+    at its input's dtype (float32 parameters either way)."""
 
     def __init__(self, n_blocks: int = 4, start_filts: int = 32,
                  out_channels: int = 32, in_channels: int = 16):
@@ -132,4 +168,4 @@ class UNet2D(nn.Module):
             skips.append(before)
         for i, up in enumerate(self.up_convs):
             x = up(x, skips[-(i + 2)])
-        return self.conv_final(x)
+        return run_conv(self.conv_final, x)

@@ -4,16 +4,21 @@ feature head's layer.
 Port of the TPU kernel ``cet_pick_tpu/ops/pallas_head.py:95``
 (``ztap_dilated_conv``), at the same signature and layout:
 ``x (B, D, H, W, C)``, ``kernel (3, 3, 3, C, F)`` -> ``(B, D, H, W, F)``.
+The kernel is the float32 parameter; x is float32, or bfloat16 under
+``--dtype bfloat16``, and the result has x's dtype.
 
-* ``ztap_dilated_conv`` is the wrapper. A CUDA tensor launches the
-  hand-written Hopper kernel in ``csrc/ztap_conv.cu`` (an implicit GEMM on
-  the tensor cores in 3xTF32, built by nvcc at first use, see
-  ``ops/_build.py``) and adds one to ``ztap_dilated_conv.launches``; a CPU
-  tensor takes the plain version. Any other input raises.
+* ``ztap_dilated_conv`` is the wrapper. A CUDA tensor launches a
+  hand-written Hopper kernel in ``csrc/ztap_conv.cu``, built by nvcc at
+  first use (``ops/_build.py``): float32 x the 3xTF32 implicit GEMM, which
+  adds one to ``ztap_dilated_conv.launches``; bfloat16 x the bf16 one
+  (``ztap_dilated_conv_bf16``, its own count). A CPU tensor takes the
+  plain version. Any other input raises.
 * ``ztap_dilated_conv_plain`` is the plain PyTorch version: the z-tap form
   of the JAX ``_ZTapDilatedConv`` (models/detector.py:56-79) — one 2D
   dilated conv with 3F outputs, then a shifted z-add, then the ReLU. The CPU
   path and the card-side comparison use it; training uses it with autograd.
+  In bfloat16 it rounds where JAX does: x and the kernel to bf16, each z
+  offset's f32 sum to bf16, then ``bf16(bf16(u0 + u1) + u2)``.
 """
 
 from __future__ import annotations
@@ -28,29 +33,84 @@ from cet_pick_tpu_torch.ops._build import load_library
 
 _KERNEL_GROUP = 32  # the CUDA kernel takes F = 16 or a multiple of this
 _MAX_DILATION = 8  # and a halo of at most this many pixels
+# The bar of a bf16 z-tap against another computation of it (the kernel
+# against its plain version, the plain version against JAX's). Only the
+# order of the f32 sums behind each rounding differs; that moves a
+# rounding by one bf16 ulp where a sum lies near a rounding boundary, and
+# the adds after it carry that on. An element passes five roundings (u0,
+# u1, u2, s = u0 + u1, y = s + u2; the ReLU adds none), and two roundings
+# of values a and b differ by at most |a - b| plus an ulp, so two
+# computations of an element differ by at most the sum of one ulp of each
+# of its rounded terms (``bf16_rounding_allowance``). The ulp of y alone is
+# no unit: the z-add cancels, and a flipped u0 of ~1 moves a y of ~1e-3 by
+# ~250 of y's own ulps. The bar: at least BF16_EQUAL_SHARE of the elements
+# bit-equal, and every element within its allowance.
+BF16_EQUAL_SHARE = 0.99
 
 
-def ztap_dilated_conv_plain(x, kernel, *, dilation: int = 4,
-                            relu: bool = True):
-    """Plain PyTorch z-tap form; same arguments and result as the wrapper."""
+def _bf16_ulp(t):
+    """One bf16 ulp at |t| (float32), taken a little above |t| so that a
+    term one or two ulps below a power of two gets the ulp above it, where
+    the other computation's term may lie."""
+    mag = (t.float().abs() * (1 + 2.0 ** -6)).clamp_min(
+        torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def bf16_rounding_allowance(x, kernel, *, dilation: int = 4):
+    """Elementwise the sum of one bf16 ulp of each rounded term of the bf16
+    z-tap's sum (u0, u1, u2, bf16(u0 + u1), y), (B, D, H, W, F) float32:
+    the most two computations that differ only in the order of their f32
+    sums can differ by (the comment above)."""
+    u0, u1, u2 = _planes(x, kernel, dilation)
+    s = u0 + u1
+    total = sum(_bf16_ulp(t) for t in (u0, u1, u2, s, s + u2))
+    return total.permute(0, 1, 3, 4, 2)
+
+
+def bf16_agreement(got, want, allowance):
+    """(share of elements bit-equal, the worst |got - want| as a share of
+    its element's allowance, ok) of two bf16 z-tap results, against the bar
+    above."""
+    diff = (got.float() - want.float()).abs()
+    share = float((diff == 0).float().mean())
+    worst = float((diff / allowance).max()) if got.numel() else 0.0
+    return share, worst, share >= BF16_EQUAL_SHARE and worst <= 1.0
+
+
+def _planes(x, kernel, dilation):
+    """The z-tap's three shifted planes u[z-1, 0], u[z, 1], u[z+1, 2],
+    each (B, D, F, H, W) in x's dtype: f32 sums of x and the kernel (cast to
+    bf16 first under bfloat16), rounded to x's dtype."""
     b, d, h, w, c = x.shape
     f = kernel.shape[-1]
+    dtype = x.dtype
+    if dtype == torch.bfloat16:  # f32 sums of the bf16 values
+        x, kernel = x.float(), kernel.to(dtype).float()
     # (kz, ky, kx, c, f) -> (kz*F + f, c, ky, kx): output blocks by z offset
     k2 = kernel.permute(0, 4, 3, 1, 2).reshape(3 * f, c, 3, 3)
     u = F.conv2d(x.reshape(b * d, h, w, c).permute(0, 3, 1, 2), k2,
                  padding=dilation, dilation=dilation)
-    u = u.reshape(b, d, 3, f, h, w)
+    u = u.reshape(b, d, 3, f, h, w).to(dtype)
     # y[z] = u[z-1, dz=0] + u[z, dz=1] + u[z+1, dz=2]; the zero pad at the
     # z borders reproduces conv3d's SAME padding exactly
     up = F.pad(u, (0, 0, 0, 0, 0, 0, 0, 0, 1, 1))
-    y = up[:, :-2, 0] + up[:, 1:-1, 1] + up[:, 2:, 2]
-    y = y.permute(0, 1, 3, 4, 2).contiguous()
+    return up[:, :-2, 0], up[:, 1:-1, 1], up[:, 2:, 2]
+
+
+def ztap_dilated_conv_plain(x, kernel, *, dilation: int = 4,
+                            relu: bool = True):
+    """Plain PyTorch z-tap form; same arguments and result as the wrapper.
+    The planes are added in x's dtype in JAX's order, rounding after each
+    add."""
+    u0, u1, u2 = _planes(x, kernel, dilation)
+    y = (u0 + u1 + u2).permute(0, 1, 3, 4, 2).contiguous()
     return torch.relu(y) if relu else y
 
 
 @functools.cache
-def _cuda_fn():
-    fn = load_library("ztap_conv").ztap_dilated_conv_f32
+def _cuda_fn(suffix):
+    fn = getattr(load_library("ztap_conv"), f"ztap_dilated_conv_{suffix}")
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -65,10 +125,11 @@ def _check(x, kernel):
     if kernel.shape[3] != x.shape[4]:
         raise ValueError(f"kernel has C={kernel.shape[3]}, x has "
                          f"C={x.shape[4]}")
-    if x.dtype != torch.float32 or kernel.dtype != torch.float32:
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or kernel.dtype != torch.float32:
         raise TypeError(
-            f"ztap_dilated_conv runs float32 only (got {x.dtype}, "
-            f"{kernel.dtype}); a bfloat16 kernel is not ported yet")
+            f"ztap_dilated_conv takes float32 or bfloat16 x and a float32 "
+            f"kernel (got {x.dtype}, {kernel.dtype})")
     if x.device != kernel.device:
         raise ValueError(f"x on {x.device}, kernel on {kernel.device}")
     if not (x.is_contiguous() and kernel.is_contiguous()):
@@ -78,24 +139,55 @@ def _check(x, kernel):
 def ztap_dilated_conv(x, kernel, *, dilation: int = 4, relu: bool = True):
     """Fused SAME conv3d k(3,3,3) dil(1, dilation, dilation) (+ ReLU).
 
-    x: (B, D, H, W, C) float32; kernel: (3, 3, 3, C, F) float32 (the JAX
-    ``nn.Conv`` layout). Any H and W. Returns a contiguous (B, D, H, W, F).
+    x: (B, D, H, W, C) float32 or bfloat16; kernel: (3, 3, 3, C, F)
+    float32 (the JAX ``nn.Conv`` layout). Any H and W. Returns a contiguous
+    (B, D, H, W, F) of x's dtype.
     """
     _check(x, kernel)
+    if x.dtype == torch.bfloat16:
+        return ztap_dilated_conv_bf16(x, kernel, dilation=dilation, relu=relu)
     if x.device.type == "cpu":
         return ztap_dilated_conv_plain(x, kernel, dilation=dilation,
                                        relu=relu)
+    y = _launch(x, kernel, "f32", 4, dilation, relu)
+    ztap_dilated_conv.launches += 1
+    return y
+
+
+def ztap_dilated_conv_bf16(x, kernel, *, dilation: int = 4,
+                           relu: bool = True):
+    """The bfloat16 z-tap: x (B, D, H, W, C) bf16, kernel (3, 3, 3, C, F)
+    float32, cast to bf16 here as JAX casts it. A CUDA tensor launches the
+    bf16 kernel and adds one to ``ztap_dilated_conv_bf16.launches``; a CPU
+    tensor takes the plain version."""
+    _check(x, kernel)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"ztap_dilated_conv_bf16 takes bfloat16 x (got "
+                        f"{x.dtype})")
+    if x.device.type == "cpu":
+        return ztap_dilated_conv_plain(x, kernel, dilation=dilation,
+                                       relu=relu)
+    # (kz, ky, kx, C, F) -> bf16 (kz, ky, kx, F, C): an output's channels
+    # contiguous, as the kernel stages them
+    kb = kernel.to(torch.bfloat16).transpose(3, 4).contiguous()
+    y = _launch(x, kb, "bf16", 8, dilation, relu)
+    ztap_dilated_conv_bf16.launches += 1
+    return y
+
+
+def _launch(x, kernel, suffix, c_align, dilation, relu):
+    """Launch the ``suffix`` kernel on CUDA tensors; returns y."""
     if x.device.type != "cuda":
         raise ValueError(f"ztap_dilated_conv runs on cuda or cpu, not "
                          f"{x.device}")
     b, d, h, w, c = x.shape
-    f = kernel.shape[-1]
-    if not (f == 16 or f % _KERNEL_GROUP == 0) or c % 4 \
+    f = kernel.shape[3 if suffix == "bf16" else 4]
+    if not (f == 16 or f % _KERNEL_GROUP == 0) or c % c_align \
             or not 1 <= dilation <= _MAX_DILATION:
         raise ValueError(
             f"the CUDA kernel takes F = 16 or a multiple of {_KERNEL_GROUP}, "
-            f"C % 4 == 0 and 1 <= dilation <= {_MAX_DILATION} (got C={c}, "
-            f"F={f}, dilation={dilation})")
+            f"C % {c_align} == 0 and 1 <= dilation <= {_MAX_DILATION} (got "
+            f"C={c}, F={f}, dilation={dilation})")
     if x.data_ptr() % 16 or kernel.data_ptr() % 16:
         raise ValueError("ztap_dilated_conv wants 16-byte aligned tensors")
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
@@ -105,14 +197,14 @@ def ztap_dilated_conv(x, kernel, *, dilation: int = 4, relu: bool = True):
     if y.numel() == 0:
         return y
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _cuda_fn()(x.data_ptr(), kernel.data_ptr(), y.data_ptr(),
-                     b, d, h, w, c, f, int(dilation), int(relu),
-                     x.device.index, stream)
+    err = _cuda_fn(suffix)(x.data_ptr(), kernel.data_ptr(), y.data_ptr(),
+                           b, d, h, w, c, f, int(dilation), int(relu),
+                           x.device.index, stream)
     if err:
-        raise RuntimeError(f"ztap_dilated_conv kernel launch failed: CUDA "
-                           f"error {err}")
-    ztap_dilated_conv.launches += 1
+        raise RuntimeError(f"ztap_dilated_conv ({suffix}) kernel launch "
+                           f"failed: CUDA error {err}")
     return y
 
 
 ztap_dilated_conv.launches = 0
+ztap_dilated_conv_bf16.launches = 0

@@ -38,9 +38,9 @@ non-zero; nothing falls back to the CPU):
              annotations, validated every epoch: every gram kernel and the
              z-tap kernel (in validation) launched, the loss finite and
              falling, samples/s;
-             then a short ``--pn`` run for the logit gram kernels; then one
-             train step by stage (device ms, kernel ms, the card's busy
-             share, host stages). Every train run (here, cr and unetw)
+             then a short ``--pn`` run for the logit gram kernels (the
+             report-only train step by stage gave way to the bf16 phase).
+             Every train run (here, cr and unetw)
              keeps its gram kernel's inputs at the last step of each epoch
              and holds the kernel against its plain version on them
 6. main path ``python -m cet_pick_tpu_torch test`` on the same volumes with
@@ -57,13 +57,13 @@ non-zero; nothing falls back to the CPU):
 9. train_tomo 20 steps of ``train --task tomo --pn``, metrics finite
 10. unetw    ``train --task semi --arch unetw_3`` on the same volumes (the
              row gram at C = 128; the losses finite and the train loss
-             below the first epoch's in a later epoch), one of its train
-             steps by stage,
+             below the first epoch's in a later epoch),
              then ``test --arch unetw_3`` with its ``model_best.pth`` (the
              z-tap kernel at C = F = 128): outputs checked, F1 > 0.7,
-             per-stage times, the peak device bytes per fused input voxel,
-             and its forward by stage (the report-only ``test`` of its
-             ``model_last.pth`` gave way to the ddp phase)
+             per-stage times, the peak device bytes per fused input voxel
+             (the report-only ``test`` of its ``model_last.pth`` gave way
+             to the ddp phase; its train step and forward by stage to the
+             bf16 phase)
 11. semiclass ``train --task semiclass --ge`` (unet_4, batch 8,
              contrastive: the row gram kernels at (8, 12288, 32)), 3
              epochs, then ``--pn`` (the logit ones), 10 epochs
@@ -99,9 +99,9 @@ non-zero; nothing falls back to the CPU):
              card against CPU), then ``python -m cet_pick_tpu_torch
              explore`` at its defaults (2d3d, batch 256, lr 1e-3, cosine):
              every epoch's loss finite, its std monitor > 0.01,
-             ``model_last.pth`` written; samples/s, peak device memory;
-             one explore step by stage (augment, forward, loss, backward,
-             SGD) with the card's busy share
+             ``model_last.pth`` written; samples/s, peak device memory
+             (the report-only explore step by stage gave way to the bf16
+             phase)
 16. embed    ``embed`` on that checkpoint: the npz's keys, dtypes and
              shapes, ``proj`` finite, as many rows as the test split has
              patches; patches/s and the 1-NN label agreement of ``proj``
@@ -112,10 +112,11 @@ non-zero; nothing falls back to the CPU):
 The slice of ``watch``, ``classify``, freeze, ``--profile_dir`` and
 ``doctor`` adds:
 
-- doctor     ``python -m cet_pick_tpu_torch doctor`` after the gram phase,
-             in a process of its own with torch's default settings, as a
-             user runs it: exit 0, ``healthy`` true (each kernel once at a
-             small shape against its plain version)
+- doctor     ``python -m cet_pick_tpu_torch doctor``, started after the
+             gram phase in a process of its own with torch's default
+             settings, as a user runs it, beside the model phases: exit 0,
+             ``healthy`` true (each kernel once at a small shape against
+             its plain version)
 - watch      after the main path's ``test``: ``watch --once`` over a
              directory with its two volumes and one truncated .rec, on the
              same checkpoint: the outputs byte-equal to ``test``'s, the
@@ -164,8 +165,8 @@ The slice of exploration's 3D-subvolume mode and MoCo adds:
 - explore_vol ``explore --task simsiam --arch simsiam_18`` at its defaults
              (batch 256, 8x64x64), 1 epoch of VOL_ITERS steps: losses
              finite, std > 0.01, ``model_last.pth``; samples/s, peak
-             bytes; then one step by stage with the busy share
-             (``explore_breakdown_vol``)
+             bytes (its report-only step by stage gave way to the bf16
+             phase)
 - embed_vol  ``embed`` on it: keys, dtypes, shapes (``subvol`` (N, 8, 64,
              64)), patches/s, 1-NN agreement
 - moco       ``moco`` at its defaults (2d, batch 128, head_conv 256) for 1
@@ -206,8 +207,7 @@ adds, after ``vol_migration`` (walls in the same ``walls`` line):
              parameters 1e-5 of max(1, largest) where the float64
              gradient is not near 0 (``step_errors``);
              the same from the seeded weights with the Lloyd loop in f32
-             and in float64, and the trained f32 step under a 1e-7
-             input change, reported
+             and in float64, reported
 - denoise    ``denoise`` at its defaults (crop 128, batch 8, lr 1e-3,
              exclude 200) for DENOISE_ITERS iterations on one 256x512x512
              rec of blobs under noise, ``--write_denoised``, then
@@ -269,9 +269,8 @@ The slice of data parallelism and multi-rank picking adds, after
              STEP_GRAD_TOL of the plain single-process step; one more
              ``semi`` step with cuDNN on, as ``train --mesh_shape`` runs,
              within DDP_CUDNN_GRAD_TOL of one process's, and the same in
-             float64 (contrastive off) within DDP_F64_GRAD_TOL, beside
-             one process's float32 step under DDP_NOISE input noise
-             against itself (DDP_CUDNN_GRAD_TOL's comment); then ``test
+             float64 (contrastive off) within DDP_F64_GRAD_TOL
+             (DDP_CUDNN_GRAD_TOL's comment); then ``test
              --mesh_shape 2`` on that 256x512x512 volume from the main path's
              ``model_best.pth`` with ``--tile`` DDP_TILE (H in four xy
              tiles, two a rank): ``_hm.mrc`` within DDP_HM_TOL of the
@@ -283,6 +282,33 @@ The slice of data parallelism and multi-rank picking adds, after
              at once after the two ranks. Per-rank step ms and samples/s
              are reported: ranks that share one card show correctness,
              not scaling
+- bf16       ``--dtype bfloat16`` for the detector family:
+             ``bf16_kernels`` (after the kernels phase) holds the bf16
+             z-tap kernel against its plain version and a second launch
+             at C = F = 32 and 128 on the main-path shapes and two ragged
+             ones (``ops/ztap_conv.bf16_agreement``), with its time, the
+             plain version's, bf16 ``F.conv3d`` + ReLU's and the bound
+             (bf16 dense tensor cores, or 2 bytes in and 2 out a
+             voxel-channel); ``bf16_models`` (after the model phase):
+             unet_4, unetw_3 and res3d_2 with seeded weights, the card's
+             bf16 forward against the CPU's (within twice the CPU's own
+             bf16-vs-float32 distance plus BF16_FLOOR), and one fused
+             256x512x512 forward each (peak bytes per fused input voxel
+             within the model's bf16 constant, bf16 z-tap launches, no f32
+             ones); ``bf16_test``: ``test --dtype bfloat16`` of the main
+             path's ``model_best.pth`` (F1 gated > 0.7, its ``_hm.mrc``
+             against the float32 ``test``'s reported), its breakdown by
+             stage; ``bf16_train``: ``train --dtype bfloat16`` (semi,
+             unet_4, TRAIN_EPOCHS), losses finite and falling, row gram
+             launches equal to the steps, then ``test --dtype bfloat16``
+             of its ``model_best.pth`` (F1 gated > 0.7); ``bf16_step``:
+             one semi step from the main path's ``model_best.pth`` in bf16
+             on the card against bf16 on the CPU, each device's float32
+             step the witness, on 8 batches (of the step's largest
+             gradient: the f32 steps within STEP_GRAD_TOL, each device's
+             bf16 step within BF16_OWN_MAX of its f32 one, the bf16 ones
+             within STEP_GRAD_TOL plus twice the CPU's largest
+             bf16-vs-f32 distance; each tensor's reported)
 
 The model phase also runs ``res3d_2`` and ``res3dref_18``: the card's
 untiled forward against the CPU's, and one untiled forward of a
@@ -312,10 +338,12 @@ unordered sums.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -323,6 +351,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -335,7 +364,10 @@ from cet_pick_tpu_torch.data.refine_dataset import RefineDataset
 from cet_pick_tpu_torch.eval.metrics import evaluate_detections
 from cet_pick_tpu_torch.infer.classify import TomoClassDetector
 from cet_pick_tpu_torch.infer.detector import TomoDetector
-from cet_pick_tpu_torch.infer.tiled import TiledHeatmapInference
+from cet_pick_tpu_torch.infer.tiled import (
+    TiledHeatmapInference,
+    bytes_per_voxel,
+)
 from cet_pick_tpu_torch.io.loader import load_rec, preprocess_quantized
 from cet_pick_tpu_torch.io.mrc import read_mrc, write_mrc
 from cet_pick_tpu_torch.models.convert import load_checkpoint
@@ -346,20 +378,25 @@ from cet_pick_tpu_torch.ops.augment import vol_out_size
 from cet_pick_tpu_torch.ops.decode import tomo_decode
 from cet_pick_tpu_torch.ops.nms import sigmoid_clamped
 from cet_pick_tpu_torch.ops.ztap_conv import (
+    BF16_EQUAL_SHARE,
+    bf16_agreement,
+    bf16_rounding_allowance,
     ztap_dilated_conv,
+    ztap_dilated_conv_bf16,
     ztap_dilated_conv_plain,
 )
 from cet_pick_tpu_torch.train import losses as train_losses
 from cet_pick_tpu_torch.train import supervised as train_supervised
 from cet_pick_tpu_torch.train.refine import make_train_step, prepare_refine
-from cet_pick_tpu_torch.train.state import TrainState, save_checkpoint
+from cet_pick_tpu_torch.train.state import TrainState
 
-# Dense FP32 (non-tensor-core) rate, dense TF32 tensor-core rate and memory
-# bandwidth by the name nvidia-smi gives; NVIDIA data sheets. "H100" alone
-# is the SXM part. A 3xTF32 product takes three TF32 products.
-PEAKS = (("H100 PCIe", 51.2e12, 378e12, 2.0e12),
-         ("H100 NVL", 60.0e12, 417.5e12, 3.9e12),
-         ("H100", 67.0e12, 495e12, 3.35e12))
+# Dense FP32 (non-tensor-core) rate, dense TF32 tensor-core rate, memory
+# bandwidth and dense bf16 tensor-core rate by the name nvidia-smi gives;
+# NVIDIA data sheets. "H100" alone is the SXM part. A 3xTF32 product takes
+# three TF32 products.
+PEAKS = (("H100 PCIe", 51.2e12, 378e12, 2.0e12, 756e12),
+         ("H100 NVL", 60.0e12, 417.5e12, 3.9e12, 835e12),
+         ("H100", 67.0e12, 495e12, 3.35e12, 989e12))
 
 # The main path: the Config defaults (unet_4, tile (64, 512, 512), halo 3)
 # on a 256x512x512 volume fuse 4 z windows of 70 slices, so the head's
@@ -408,7 +445,6 @@ GRAM_GRAD = (3e-4, 3e-5)
 # one of three runs on the card (PERF.md).
 TRAIN_EPOCHS = 2
 PN_STEPS = 20
-BREAKDOWN_STEPS = 5  # 10 until the --debug phases (EXPLORE_EPOCHS)
 CR_EPOCHS = 2
 TOMO_STEPS = 20
 UNETW_EPOCHS = 4
@@ -447,12 +483,13 @@ def emit(obj):
 
 
 def peaks_for(name):
-    """{"variant", "fp32", "tf32x3", "bw"}: the card's dense FP32 rate, the
-    rate of f32 products in 3xTF32 (a third of dense TF32), bytes/s."""
-    for key, fp32, tf32, bw in PEAKS:
+    """{"variant", "fp32", "tf32x3", "bw", "bf16"}: the card's dense FP32
+    rate, the rate of f32 products in 3xTF32 (a third of dense TF32),
+    bytes/s, the dense bf16 tensor-core rate."""
+    for key, fp32, tf32, bw, bf16 in PEAKS:
         if key in name:
             return {"variant": key, "fp32": fp32, "tf32x3": tf32 / 3,
-                    "bw": bw}
+                    "bw": bw, "bf16": bf16}
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
@@ -1009,12 +1046,14 @@ GRAMS = (G.gram_row_stats, G.gram_logit_stats, G.gram_supcon_v2_stats)
 
 def reset_launches():
     ztap_dilated_conv.launches = 0
+    ztap_dilated_conv_bf16.launches = 0
     for fn in GRAMS:
         fn.launches.update(dict.fromkeys(fn.launches, 0))
 
 
 def read_launches():
     return {"ztap_dilated_conv": ztap_dilated_conv.launches,
+            "ztap_dilated_conv_bf16": ztap_dilated_conv_bf16.launches,
             **{fn.__name__: dict(fn.launches) for fn in GRAMS}}
 
 
@@ -1390,101 +1429,6 @@ def phase_train_semi3d(work):
     return rec, launches
 
 
-def phase_train_breakdown(work, arch="unet_4"):
-    """One default train step by stage: device time from CUDA events at the
-    model's forward boundaries and around the losses, backward and Adam
-    (each step synchronized); the wall time of unsynchronized steps, as the
-    loop runs them; kernel time per step from torch.profiler and so the
-    card's busy share; and the host stages the loop overlaps (one batch's
-    crops, one checkpoint write). A fresh model on the main path's data."""
-    cfg = Config(task="semi", arch=arch, contrastive=True, data_dir=work,
-                 order="zxy", root_dir=work,
-                 exp_id=f"breakdown_{arch}").finalize()
-    ds = RefineDataset(cfg, "train")
-    prepared = prepare_refine(cfg, log_fn=lambda *_: None, device=DEVICE)
-    model, state = prepared["model"], prepared["state"]
-    step = make_train_step(model, cfg)
-    rng = np.random.default_rng(0)
-    n = 3 + 3 * BREAKDOWN_STEPS
-    t0 = time.perf_counter()
-    host = [ds.sample_batch(rng, [i % len(ds)]) for i in range(n)]
-    crops_s = (time.perf_counter() - t0) / n
-    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
-               for b in host]
-    marks = []
-    handles = [model.register_forward_pre_hook(
-                   lambda *_: marks.append(_event())),
-               model.register_forward_hook(
-                   lambda *_: marks.append(_event()))]
-
-    def timed_step(batch):
-        start = _event()
-        model.train()
-        loss, _ = step.loss_fn(batch)
-        e_loss = _event()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        e_bwd = _event()
-        state.optimizer.step()
-        return start, e_loss, e_bwd, _event()
-
-    for b in batches[:3]:
-        timed_step(b)
-    torch.cuda.synchronize()
-    stages = {k: 0.0 for k in ("forward_1", "flip_view", "forward_2",
-                               "losses_incl_gram_fwd",
-                               "backward_incl_gram_bwd", "adam", "total")}
-    for b in batches[3:3 + BREAKDOWN_STEPS]:
-        del marks[:]
-        start, e_loss, e_bwd, e_adam = timed_step(b)
-        torch.cuda.synchronize()
-        f1_in, f1_out, f2_in, f2_out = marks
-        for k, (a, z) in (("forward_1", (f1_in, f1_out)),
-                          ("flip_view", (f1_out, f2_in)),
-                          ("forward_2", (f2_in, f2_out)),
-                          ("losses_incl_gram_fwd", (f2_out, e_loss)),
-                          ("backward_incl_gram_bwd", (e_loss, e_bwd)),
-                          ("adam", (e_bwd, e_adam)),
-                          ("total", (start, e_adam))):
-            stages[k] += a.elapsed_time(z) / BREAKDOWN_STEPS
-    for h in handles:
-        h.remove()
-    rest = batches[3 + BREAKDOWN_STEPS:]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b in rest[:BREAKDOWN_STEPS]:  # as the loop runs them: no sync
-        step(state, b)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / BREAKDOWN_STEPS
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for b in rest[BREAKDOWN_STEPS:]:
-            step(state, b)
-        torch.cuda.synchronize()
-    # device kernels only: a CPU op's self device time, and a device-side
-    # annotation such as Adam's step range, repeat their kernels' time
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3 / BREAKDOWN_STEPS)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and not e.is_user_annotation
-         and e.self_device_time_total > 0), key=lambda kv: -kv[1])
-    device_ms = sum(ms for _, ms in kernels)
-    t0 = time.perf_counter()
-    save_checkpoint(os.path.join(work, "breakdown.pth"), state, cfg)
-    rec = {"phase": "train_breakdown", "arch": arch, "what": "device ms per "
-           "default train step (batch 1, 6x64x64 pairs, contrastive)",
-           "stages_ms": stages, "wall_ms_per_step": wall_ms,
-           "profiled_kernel_ms_per_step": device_ms,
-           "device_busy_share": device_ms / wall_ms if device_ms else None,
-           "top_kernels_ms_per_step": kernels[:10],
-           "host_crops_s_per_batch": crops_s,
-           "checkpoint_write_s": time.perf_counter() - t0}
-    emit(rec)
-    return rec
-
-
 def pick_f1(out_dir, names, planted):
     """Best F1 over score thresholds of the written picks against the
     planted centres (eval/metrics.evaluate_detections, Hungarian matching
@@ -1507,23 +1451,30 @@ def pick_f1(out_dir, names, planted):
 
 def phase_main_path(work, names, planted, arch="unet_4", exp_id="default",
                     phase="main_path", ckpt="model_best.pth", gate=True,
-                    task="semi"):
+                    task="semi", dtype="float32", out_exp_id=None):
     """``test`` with a checkpoint of the trained run: by default its
     best-validation one, whose F1 is gated (at lr 1e-3 and batch 1 the last
     epoch's is a noisy draw, PERF.md); with ``gate`` False the F1 is only
-    reported."""
-    argv = ["test", "--task", task, "--arch", arch, "--exp_id", exp_id,
+    reported. ``dtype``: its ``--dtype`` (the z-tap kernel of that dtype
+    must launch, the other not); ``out_exp_id``: where it writes, when not
+    beside the checkpoint."""
+    out_exp_id = out_exp_id or exp_id
+    argv = ["test", "--task", task, "--arch", arch, "--exp_id", out_exp_id,
             "--order", "zxy", "--data_dir", work, "--root_dir", work,
-            "--with_score", "--device", DEVICE, "--load_model",
-            os.path.join(work, "exp", task, exp_id, ckpt)]
+            "--with_score", "--device", DEVICE, "--dtype", dtype,
+            "--load_model", os.path.join(work, "exp", task, exp_id, ckpt)]
     cfg = Config(task=task, arch=arch).finalize()  # what `test` uses
     dr = cfg.down_ratio
 
     torch.cuda.reset_peak_memory_stats()
     lines, launches, wall = run_cli(argv)
     peak = torch.cuda.max_memory_allocated()
-    if launches["ztap_dilated_conv"] == 0:
-        raise RuntimeError("the main path never launched the z-tap kernel")
+    kernel, other = "ztap_dilated_conv", "ztap_dilated_conv_bf16"
+    if dtype == "bfloat16":
+        kernel, other = other, kernel
+    if launches[kernel] == 0 or launches[other] != 0:
+        raise RuntimeError(f"the main path ({dtype}) launched the z-tap "
+                           f"kernels {launches}")
 
     times = {}
     for line in lines:
@@ -1531,7 +1482,7 @@ def phase_main_path(work, names, planted, arch="unet_4", exp_id="default",
         vals = rest.split()
         times[name] = {k: float(v.rstrip("s"))
                        for k, v in zip(vals[::2], vals[1::2])}
-    out_dir = os.path.join(work, "exp", task, exp_id, "output")
+    out_dir = os.path.join(work, "exp", task, out_exp_id, "output")
     d, h, w = VOLUME
     n_picks = {}
     for name in names:
@@ -1558,7 +1509,7 @@ def phase_main_path(work, names, planted, arch="unet_4", exp_id="default",
     steady = times[names[1]]
     voxels = d * h * w
     rec = {"phase": phase, "arch": arch, "checkpoint": ckpt,
-           "volume": list(VOLUME), "volumes": 2,
+           "dtype": dtype, "volume": list(VOLUME), "volumes": 2,
            "launches": launches, "times_s": times,
            "steady_state_voxel_per_s": voxels / steady["tot"],
            "steady_state_net_dec_voxel_per_s": voxels / steady["net+dec"],
@@ -1579,10 +1530,12 @@ def phase_main_path(work, names, planted, arch="unet_4", exp_id="default",
     return rec
 
 
-def phase_breakdown(ckpt, arch="unet_4"):
+def phase_breakdown(ckpt, arch="unet_4", dtype="float32"):
     """Device time of one fused forward + decode of the main-path volume by
-    stage, from CUDA events recorded at module boundaries (stream order)."""
-    cfg = Config(task="semi", arch=arch, load_model=ckpt).finalize()
+    stage, from CUDA events recorded at module boundaries (stream order),
+    under ``--dtype dtype``. Returns the record."""
+    cfg = Config(task="semi", arch=arch, load_model=ckpt,
+                 dtype=dtype).finalize()
     det = TomoDetector(cfg, device=DEVICE)
     model = det.model
     events = {}
@@ -1609,7 +1562,7 @@ def phase_breakdown(ckpt, arch="unet_4"):
     for h in handles:
         h.remove()
     span = lambda a, b: a.elapsed_time(b)  # noqa: E731
-    rec = {"phase": "breakdown", "arch": arch,
+    rec = {"phase": "breakdown", "arch": arch, "dtype": dtype,
            "what": "device ms, one fused volume",
            "total_ms": span(start, end),
            "dequant_stem_ms": span(start, events["unet_in"]),
@@ -1620,6 +1573,7 @@ def phase_breakdown(ckpt, arch="unet_4"):
     rec.update(memory_by_module(model, lambda: det.process(vol, lo=0.0,
                                                            hi=255.0)))
     emit(rec)
+    return rec
 
 
 def memory_by_module(model, run):
@@ -2046,152 +2000,6 @@ def phase_explore(work, mode="2d3d", epochs=None, extra=()):
     return rec
 
 
-def phase_explore_breakdown(mode="2d3d"):
-    """One explore step at batch 256 by stage (2d3d at bbox 36, or vol at
-    8x64x64), device ms from CUDA events (each step synchronized): both
-    views' augment, the two-view forward, the loss, the backward, SGD; the
-    wall time of unsynchronized steps and the card's busy share from
-    torch.profiler. A fresh model on uniform [0, 1) inputs (the step's
-    device work does not depend on the values)."""
-    from cet_pick_tpu_torch.train.explore import (
-        make_simsiam_train_step,
-        prepare_explore,
-        split_views,
-    )
-
-    if mode == "vol":
-        cfg = Config(task="simsiam", arch="simsiam_18", vol_size=VOL_SIZE,
-                     batch_size=EXPLORE_BATCH, lr=1e-3, cosine=True).finalize()
-        shape, c = (EXPLORE_BATCH,) + VOL_SIZE, 1
-    else:
-        cfg = Config(task="simsiam2d3d", arch="simsiam2d3d_18", bbox=36,
-                     batch_size=EXPLORE_BATCH, lr=1e-3,
-                     cosine=True).finalize()
-        shape, c = (EXPLORE_BATCH, 2, 36, 36), 2
-    prepared = prepare_explore(cfg, log_fn=lambda *_: None, device=DEVICE)
-    model, state = prepared["model"], prepared["state"]
-    gen = torch.Generator(device=DEVICE).manual_seed(1)
-    mean = torch.tensor([0.45, 0.5][:c], device=DEVICE)
-    std = torch.tensor([0.2, 0.25][:c], device=DEVICE)
-    step = make_simsiam_train_step(model, cfg, mean, std, gen)
-    rng = np.random.default_rng(0)
-    batches = [{k: torch.from_numpy(rng.random(shape, dtype=np.float32))
-                .to(DEVICE) for k in ("anchor", "aug")}
-               for _ in range(3 + 3 * BREAKDOWN_STEPS)]
-
-    def timed_step(batch):
-        marks = [_event()]
-        model.train()
-        v1, v2 = step.augment(batch)
-        marks.append(_event())
-        ret1, ret2 = model(*split_views(v1, model.mode),
-                           *split_views(v2, model.mode))
-        marks.append(_event())
-        loss, _ = train_losses.simsiam_loss(ret1["pred"], ret1["proj"],
-                                            ret2["pred"], ret2["proj"])
-        marks.append(_event())
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        marks.append(_event())
-        state.optimizer.step()
-        marks.append(_event())
-        return marks
-
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    for b in batches[:3]:
-        timed_step(b)
-    torch.cuda.synchronize()
-    names = ("augment", "forward", "loss", "backward", "sgd")
-    stages = dict.fromkeys(names + ("total",), 0.0)
-    for b in batches[3:3 + BREAKDOWN_STEPS]:
-        marks = timed_step(b)
-        torch.cuda.synchronize()
-        for k, a, z in zip(names, marks, marks[1:]):
-            stages[k] += a.elapsed_time(z) / BREAKDOWN_STEPS
-        stages["total"] += marks[0].elapsed_time(marks[-1]) / BREAKDOWN_STEPS
-    rest = batches[3 + BREAKDOWN_STEPS:]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b in rest[:BREAKDOWN_STEPS]:
-        step(state, b)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / BREAKDOWN_STEPS
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for b in rest[BREAKDOWN_STEPS:]:
-            step(state, b)
-        torch.cuda.synchronize()
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3 / BREAKDOWN_STEPS)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and not e.is_user_annotation
-         and e.self_device_time_total > 0), key=lambda kv: -kv[1])
-    device_ms = sum(ms for _, ms in kernels)
-    launches = read_launches()
-    # the trunk's convs and the heads' dense layers, 2 FLOP a multiply-add,
-    # per view and sample (4 patch-forwards a sample in 2d3d: 2 views x
-    # tilt + slice; 2 subvolume-forwards in vol); backward 2x
-    if mode == "vol":
-        fwd_flop = 2 * EXPLORE_BATCH * vol_trunk_flop(
-            cfg.head_conv, vol_out_size(VOL_SIZE))
-        what = "vol, batch 256, 8x64x64 -> 6x48x48, head_conv 128"
-    else:
-        fwd_flop = 4 * EXPLORE_BATCH * explore_patch_flop(cfg.head_conv)
-        what = "2d3d, batch 256, bbox 36, head_conv 128"
-    rec = {"phase": "explore_breakdown" + ("_vol" if mode == "vol" else ""),
-           "arch": cfg.arch, "what": f"device ms per explore step ({what})",
-           "stages_ms": stages, "wall_ms_per_step": wall_ms,
-           "samples_per_s_unsynchronized": 1e3 * EXPLORE_BATCH / wall_ms,
-           "profiled_kernel_ms_per_step": device_ms,
-           "device_busy_share": device_ms / wall_ms if device_ms else None,
-           "top_kernels_ms_per_step": kernels[:10],
-           "step_tflop": 3 * fwd_flop / 1e12,
-           "achieved_tflops": 3 * fwd_flop / wall_ms / 1e9,
-           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "launches": launches}
-    emit(rec)
-    if not no_launches(launches):
-        CHECK_FAILURES.append(f"{rec['phase']}: kernel launches {launches}")
-    del batches, prepared, model, state
-    return rec
-
-
-def vol_trunk_flop(head_conv, shape):
-    """FLOP of one subvolume's ``VolTrunk`` forward at post-crop ``shape``
-    (even xy: the space-to-depth stem, 4 -> 64 channels at k(3,4,4); the
-    3x3x3 convs and 1x1x1 downsamples of stages at strides (1,1,1) /
-    (2,2,2) / (1,2,2)) plus fc and the heads."""
-    d, h, w = shape[0], shape[1] // 2, shape[2] // 2
-    flop, cin = 2.0 * d * h * w * 64 * 4 * 48, 64  # stem
-    for feats, (sd, sh, sw) in ((64, (1, 1, 1)), (128, (2, 2, 2)),
-                                (256, (1, 2, 2))):
-        d, h, w = -(-d // sd), -(-h // sh), -(-w // sw)
-        n = d * h * w
-        flop += 2.0 * n * 27 * (cin * feats + 3 * feats * feats)
-        if cin != feats or (sd, sh, sw) != (1, 1, 1):
-            flop += 2.0 * n * cin * feats  # downsample
-        cin = feats
-    return flop + 2.0 * (256 * head_conv + 5 * head_conv ** 2)
-
-
-def explore_patch_flop(head_conv, hw=36):
-    """FLOP of one patch's trunk forward (3x3 convs and 1x1 downsamples at
-    stride 1 / 2 / 2) plus its share of fc and the heads."""
-    flop, cin, s = 2.0 * hw * hw * 9 * 64, 64, hw  # conv1
-    for feats, stride in ((64, 1), (128, 2), (256, 2)):
-        s = (s + stride - 1) // stride
-        flop += 2.0 * s * s * 9 * (cin * feats + feats * feats)  # block 0
-        if stride != 1:
-            flop += 2.0 * s * s * cin * feats  # downsample
-        flop += 2.0 * s * s * 9 * 2 * feats * feats  # block 1
-        cin = feats
-    # per patch-forward: half of fc (512 -> d) and of the 5 d x d layers
-    return flop + 0.5 * 2.0 * (512 * head_conv + 5 * head_conv ** 2)
-
-
 def near_planted(names, coords, planted):
     """(indices, planted classes) of the candidates within NN_RADIUS px of
     a planted centre, each with its nearest centre's class."""
@@ -2284,8 +2092,9 @@ def vol_flags():
 def no_launches(launches):
     """Whether no kernel of the port launched (the exploration paths run
     none of them)."""
-    return launches["ztap_dilated_conv"] == 0 and all(
-        v == 0 for fn in GRAMS for v in launches[fn.__name__].values())
+    return launches["ztap_dilated_conv"] == 0 \
+        and launches["ztap_dilated_conv_bf16"] == 0 and all(
+            v == 0 for fn in GRAMS for v in launches[fn.__name__].values())
 
 
 def moco_step_card_vs_cpu(cfg, v_q, v_k):
@@ -2543,7 +2352,7 @@ def phase_vol_migration(work):
 
 
 # exploration's clustering and selection (PR 9): plot2d's k-means (256
-# centroids, 300 Lloyd iterations, seed 1234; cet_pick_tpu/viz/plot2d.py:
+# centroids, 300 Lloyd iterations there, seed 1234; cet_pick_tpu/viz/plot2d.py:
 # 37-52) and SCAN's kNN (k 20, self excluded) on the 2d3d embedding, card
 # against CPU from one init. Bars: assignments agreeing on >= 99.9% of the
 # points, centroids within 1e-4 of the largest centroid value, inertia
@@ -3311,30 +3120,28 @@ DDP_METRIC_TOL = 1e-4
 # gradients lie 2.4e-2 to 2.5e-2 of the step's largest from one process's
 # in every call that measured it, on an NVIDIA H100 80GB HBM3, 700.00 W
 # (PERF.md). That is the float32 step's own sensitivity, not the DP step:
-# one process's step moves as far under a 1e-7 relative change of its
-# input (DDP_NOISE_SEEDS draws, reported: a max-pool's choice that
-# rounding flips), and in float64 (contrastive off: the gram kernels take
+# one process's step moved as far under a 1e-7 relative change of its
+# input (PR 14, PERF.md: a max-pool's choice that rounding flips; no
+# longer drawn here, it made way for the bf16 phase), and in float64
+# (contrastive off: the gram kernels take
 # float32 only) two ranks with cuDNN on equal one process within
 # DDP_F64_GRAD_TOL. The float32 step with cuDNN on is held within
 # DDP_CUDNN_GRAD_TOL, twice the readings
 DDP_GRAD_TOL = 1e-3
 DDP_CUDNN_GRAD_TOL = 5e-2
 DDP_F64_GRAD_TOL = 1e-9
-DDP_NOISE = 1e-7
-DDP_NOISE_SEEDS = 3
 DDP_BN_TOL = 1e-5
 DDP_HM_TOL = 1e-6
 DDP_TILE = ["64", "128", "0"]  # H in four xy tiles of 416 rows, W whole
 
 
 def ddp_refine_steps(work, pn, steps, check=True, cudnn=False,
-                     dtype=torch.float32, noise_seed=None):
+                     dtype=torch.float32):
     """``steps`` refinement steps of a seeded unet_4 (contrastive, but
     not in float64, which the gram kernels do not take; ``pn``: the logit
     gram) over the global batches one process draws from the seed, on this
     process's rows (all of them without a process group), in ``dtype``,
-    with cuDNN's convolutions off unless ``cudnn``; ``noise_seed``: each
-    crop times 1 + DDP_NOISE N(0, 1) drawn from it. With
+    with cuDNN's convolutions off unless ``cudnn``. With
     ``check`` each step's gram inputs are kept and held against the plain
     version after the steps. Returns (record, first step's tensors:
     gradients and BN statistics on the CPU)."""
@@ -3363,12 +3170,6 @@ def ddp_refine_steps(work, pn, steps, check=True, cudnn=False,
                 enabled=cudnn, allow_tf32=torch.backends.cudnn.allow_tf32):
         for i in range(steps):
             batch = next(batches)
-            if noise_seed is not None:
-                x = batch["input"]
-                batch = dict(batch, input=(x * (1 + DDP_NOISE * np.random
-                                                 .default_rng(noise_seed)
-                                                 .standard_normal(x.shape))
-                                           ).astype(np.float32))
             batch = {k: torch.from_numpy(v).to(device, dtype)
                      for k, v in D.local_batch(batch).items()}
             torch.cuda.synchronize()
@@ -3510,9 +3311,6 @@ def phase_ddp(work, names):
                                               cudnn=True)
     one_f64, f64_first = ddp_refine_steps(work, False, 1, check=False,
                                           cudnn=True, dtype=torch.float64)
-    noisy = [ddp_refine_steps(work, False, 1, check=False, cudnn=True,
-                              noise_seed=seed)[1]
-             for seed in range(DDP_NOISE_SEEDS)]
     one_pn, _ = ddp_refine_steps(work, True, DDP_PN_STEPS, check=False)
     _, one_launches, one_wall = run_cli(ddp_test_argv(work, "ddp_test_one",
                                                       ckpt))
@@ -3548,11 +3346,6 @@ def phase_ddp(work, names):
                  dp_cudnn["f64"], f64_first,
                  ranks[0]["f64_cudnn"]["metrics"][0],
                  one_f64["metrics"][0], DDP_F64_GRAD_TOL)}
-    # reported: one process's float32 step (cuDNN on) under input noise
-    # against itself
-    m = one_cudnn["metrics"][0]
-    noise = [ddp_step_errors(n, cudnn_first, m, m, DDP_CUDNN_GRAD_TOL)
-             ["grad_rel_of_step"] for n in noisy]
     later = [max(abs(rm[k] - o) / max(abs(o), 1e-30) for k, o in om.items())
              for rm, om in zip(ranks[0]["semi"]["metrics"][1:],
                                one_semi["metrics"][1:])]
@@ -3584,7 +3377,6 @@ def phase_ddp(work, names):
         "gram_check_ok": [[r["semi"]["gram_check_ok"],
                            r["pn"]["gram_check_ok"]] for r in ranks],
         "step_vs_one_process": steps,
-        "one_process_cudnn_under_input_noise": noise,
         "later_steps_metric_rel": later,
         "rank_step_ms": [r["semi"]["step_ms"] for r in ranks],
         "one_process_step_ms": one_semi["step_ms"],
@@ -3682,11 +3474,6 @@ FS_AGREE = 0.999
 # gradient (as the ddp phase holds its float32 steps)
 STEP_GRAD_TOL = 1e-2
 STEP_F64_GRAD_TOL = 1e-9
-# reported: the trained fs step in f32 on each device against the CPU's
-# float64 when its input moves by FS_NOISE of its largest, FS_NOISE_SEEDS
-# draws
-FS_NOISE = 1e-7
-FS_NOISE_SEEDS = 2
 # Adam's first step moves a weight by lr g / (|g| + eps), about lr times
 # the gradient's sign: where the float64 gradient lies within this share of
 # its tensor's largest (four times the card's worst distance from float64
@@ -3983,32 +3770,6 @@ def fewshot_step_check(cfg, sd0, batch, centers, cpu64=None, lloyd64=False):
     return rec, cpu64
 
 
-def fewshot_noise_readings(cfg, sd0, batch, centers, cpu64):
-    """The f32 step's gradients on the CPU and on the card, from ``batch``
-    with FS_NOISE of its input's largest added (FS_NOISE_SEEDS draws),
-    against ``cpu64`` (the unmoved step in float64): the worst of each
-    tensor's largest (ZERO_GRAD tensors left out) and of the step's."""
-    g64s = cpu64["grads"]
-    top = max(float(g.abs().max()) for g in g64s.values())
-    live = [k for k, g in g64s.items()
-            if float(g.abs().max()) > ZERO_GRAD * top]
-    x = batch["input"]
-    out = []
-    for seed in range(FS_NOISE_SEEDS):
-        noise = np.random.default_rng(100 + seed).standard_normal(x.shape)
-        moved = dict(batch, input=(x + FS_NOISE * float(np.abs(x).max())
-                                   * noise).astype(x.dtype))
-        for device in ("cpu", DEVICE):
-            g = fewshot_step_run(cfg, sd0, moved, centers, device,
-                                 torch.float32)["grads"]
-            out.append({"device": device, "seed": seed,
-                         "grad_rel": max(_rel_err(g[k], g64s[k])
-                                         for k in live),
-                         "grad_rel_of_step": max(_rel_err(g[k], g64s[k], top)
-                                                 for k in g64s)})
-    return out
-
-
 def phase_fewshot_step(ds):
     """One fs step at the defaults (unet_4, a 10x128x128 crop) on the card
     and on the CPU from one state, batch and centres: gated from the
@@ -4016,8 +3777,7 @@ def phase_fewshot_step(ds):
     reported (not gated) from the seeded initial weights with their cold
     centres, where the prototypes lie close together and f32 rounding
     flips near-tied assignments, with the Lloyd loop in f32 (as JAX runs
-    it) and in float64; and the trained step under input noise
-    (``fewshot_noise_readings``, reported)."""
+    it) and in float64."""
     from cet_pick_tpu_torch.models.convert import load_checkpoint
     from cet_pick_tpu_torch.train.fewshot import init_fewshot_centers
 
@@ -4028,10 +3788,7 @@ def phase_fewshot_step(ds):
                                               "model_last.pth"))
     trained_centers = torch.from_numpy(np.load(os.path.join(
         cfg.save_dir, "cluster_centers.npy")))
-    trained, trained64 = fewshot_step_check(cfg, sd_trained, batch,
-                                            trained_centers)
-    noise = fewshot_noise_readings(cfg, sd_trained, batch, trained_centers,
-                                   trained64)
+    trained, _ = fewshot_step_check(cfg, sd_trained, batch, trained_centers)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         sd0 = create_detector(cfg).state_dict()
@@ -4044,7 +3801,6 @@ def phase_fewshot_step(ds):
     seeded64, _ = fewshot_step_check(cfg, sd0, batch, centers, cpu64,
                                      lloyd64=True)
     rec = {"phase": "fewshot_step", "trained": trained,
-           "trained_f32_under_input_noise_reported": noise,
            "seeded_init_reported": seeded,
            "seeded_init_lloyd_float64_reported": seeded64,
            "bars": {"metrics": FS_TOL, "centers": FS_TOL, "assign": FS_AGREE,
@@ -4400,23 +4156,393 @@ def phase_backproject(work):
     return rec
 
 
-def phase_doctor():
-    """``doctor`` on the card, in a process of its own (this one has turned
-    TF32 off, a fresh one has not): exit 0 and ``healthy`` true."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+# -- --dtype bfloat16 for the detector family ---------------------------------
+
+# The bf16 z-tap kernel at the two main-path shapes (timed) and two ragged
+# ones; its bar is ops/ztap_conv.bf16_agreement's (at least 99% of the
+# elements bit-equal, every element within one bf16 ulp of each rounded
+# term of its sum).
+BF16_ZTAP_CASES = ((MAIN_ZTAP_SHAPE, 32, True, "unet"),
+                   ((2, 5, 37, 45, 32), 32, False, None),
+                   (UNETW_ZTAP_SHAPE, 128, True, "unetw"),
+                   ((1, 3, 11, 35, 8), 96, True, None))
+# A bf16 result against another computation of it in bf16 (card against
+# CPU, one run against another): within twice the reference's own
+# bf16-vs-float32 distance plus BF16_FLOOR, each distance the largest
+# difference as a share of the tensor's largest (tests/test_torch_bf16.py)
+BF16_FLOOR = 1e-3
+# the bf16 step, card against CPU (bf16_step_card_vs_cpu): one sample a
+# batch, 8 batches; a per-tensor reading's scale is floored at
+# BF16_NEAR_ZERO of the step's largest gradient (a bias a BatchNorm follows
+# is zero but for rounding)
+BF16_STEP_BATCH = 1
+BF16_STEP_SEEDS = tuple(range(8))
+BF16_NEAR_ZERO = 1e-3
+# a bf16 step's gradients from its own device's float32 step, of the step's
+# largest: 0.0045-0.171 on either device (PERF.md §6, PR 15 calls 6, 7 and
+# 10 and fix call 1); a broken bf16 path lies at ~1 or is not finite
+BF16_OWN_MAX = 0.35
+
+
+def ztap_work_bf16(shape, f, dil=4):
+    """(FLOP, bytes) of the bf16 z-tap: ``ztap_work``'s products; x read
+    and y written in bf16 (2 bytes a voxel-channel), the float32 kernel
+    read once."""
+    flops, _ = ztap_work(shape, f, dil)
+    b, d, h, w, c = shape
+    return flops, 2.0 * b * d * h * w * (c + f) + 4.0 * 27 * c * f
+
+
+def phase_bf16_kernels(peaks):
+    """The bf16 z-tap kernel against its plain version and against a second
+    launch of itself, with times at the main-path shapes: the kernel, the
+    plain version, ``F.conv3d`` + ReLU in bf16 (cuDNN, channels-last), and
+    the bound (bf16 dense tensor cores, or 2 bytes in and 2 out a
+    voxel-channel). Returns {"unet": record, "unetw": record}."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    main = {}
+    for shape, f, relu, key in BF16_ZTAP_CASES:
+        c = shape[-1]
+        x = torch.randn(shape, device=DEVICE, generator=gen).bfloat16()
+        k = torch.randn((3, 3, 3, c, f), device=DEVICE, generator=gen)
+        k /= math.sqrt(27 * c)
+        with torch.inference_mode():
+            y = ztap_dilated_conv(x, k, relu=relu)
+            again = ztap_dilated_conv(x, k, relu=relu)
+            ref = ztap_dilated_conv_plain(x, k, relu=relu)
+            allowance = bf16_rounding_allowance(x, k)
+        torch.cuda.synchronize()
+        share, worst, ok = bf16_agreement(y, ref, allowance)
+        rec = {"phase": "bf16_kernels", "kernel": "ztap_dilated_conv_bf16",
+               "shape": list(shape), "F": f, "relu": relu,
+               "dtype": str(y.dtype), "equal_share": share,
+               "worst_share_of_allowance": worst,
+               "max_abs_err": (y.float() - ref.float()).abs().max().item(),
+               "bar": {"equal_share": BF16_EQUAL_SHARE,
+                       "share_of_allowance": 1.0},
+               "bit_identical": torch.equal(y, again)}
+        del again, ref, allowance
+        if not ok or y.dtype != torch.bfloat16 or not rec["bit_identical"] \
+                or not torch.isfinite(y.float()).all():
+            emit(rec)
+            raise RuntimeError(f"ztap_dilated_conv_bf16 disagrees with its "
+                               f"plain version or itself at {shape}")
+        del y
+        if key:
+            x_cl = x.permute(0, 4, 1, 2, 3)  # channels-last 3D view
+            w_cl = k.permute(4, 3, 0, 1, 2).bfloat16().contiguous(
+                memory_format=torch.channels_last_3d)
+            with torch.inference_mode():
+                rec["ms"] = time_ms(lambda: ztap_dilated_conv(x, k), 10)
+                rec["plain_ms"] = time_ms(
+                    lambda: ztap_dilated_conv_plain(x, k), 3)
+                rec["library_ms"] = time_ms(lambda: torch.relu(F.conv3d(
+                    x_cl, w_cl, padding=(1, 4, 4), dilation=(1, 4, 4))), 10)
+            flops, nbytes = ztap_work_bf16(shape, f)
+            ops_s, bytes_s = flops / peaks["bf16"], nbytes / peaks["bw"]
+            rec.update(flop=flops, bytes=nbytes,
+                       bound_ms=1e3 * max(ops_s, bytes_s),
+                       bound_by="operations" if ops_s > bytes_s else "bytes",
+                       bound_tf32x3_ms=bounds(flops, nbytes, peaks)[
+                           "bound_ms"],
+                       achieved_tflops=flops / rec["ms"] / 1e9)
+            main[key] = dict(rec)
+        emit(rec)
+        del x, k
+        torch.cuda.empty_cache()
+    return main
+
+
+def bf16_forward_card_vs_cpu(arch, shape):
+    """One seeded detector's eval forward (hm after the clamped sigmoid,
+    and proj) in bf16 on the card against bf16 on the CPU, beside the
+    CPU's own bf16-vs-float32 distance: (record, ok)."""
+    task = "semi3d" if arch.startswith("res3d") else "semi"
+    outs = {}
+    torch.manual_seed(0)
+    sd = create_detector(Config(task=task, arch=arch).finalize()).state_dict()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        shape).astype(np.float32))[None]
+    for device, dtype in ((DEVICE, "bfloat16"), ("cpu", "bfloat16"),
+                          ("cpu", "float32")):
+        model = create_detector(Config(task=task, arch=arch,
+                                       dtype=dtype).finalize())
+        model.load_state_dict(sd)
+        model.to(device).eval()
+        with torch.inference_mode():
+            out = model(x.to(device))
+        outs[device, dtype] = {"hm": sigmoid_clamped(out["hm"]).cpu(),
+                               "proj": out["proj"].cpu()}
+    rec, ok = {}, True
+    for head in ("hm", "proj"):
+        card = outs[DEVICE, "bfloat16"][head]
+        cpu, cpu32 = outs["cpu", "bfloat16"][head], outs["cpu", "float32"][
+            head]
+        own = _rel_err(cpu, cpu32)
+        rec[head] = {"card_vs_cpu": _rel_err(card, cpu),
+                     "cpu_bf16_vs_f32": own,
+                     "card_bf16_vs_cpu_f32": _rel_err(card, cpu32),
+                     "bar": 2 * own + BF16_FLOOR,
+                     "dtype": str(card.dtype)}
+        ok &= rec[head]["card_vs_cpu"] <= rec[head]["bar"] \
+            and card.dtype == torch.float32 \
+            and bool(torch.isfinite(card).all())
+    return rec, ok
+
+
+def bf16_full_forward(arch):
+    """One fused (untiled for res3d_2) forward of a main-path 256x512x512
+    volume in bf16 with seeded weights: device ms, peak bytes per input
+    voxel of the fused window batch against the model's bf16 constant,
+    launches. (record, ok)."""
+    task = "semi3d" if arch.startswith("res3d") else "semi"
+    torch.manual_seed(0)
+    model = create_detector(Config(task=task, arch=arch,
+                                   dtype="bfloat16").finalize())
+    model.to(DEVICE).eval()
+    infer = TiledHeatmapInference(model)
+    vol = torch.randint(0, 256, VOLUME, dtype=torch.uint8, device=DEVICE)
+    infer.fused(vol, lo=0.0, hi=255.0)  # warm: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = _event()
+    hm = infer.fused(vol, lo=0.0, hi=255.0)
+    end = _event()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    d, h, w = VOLUME
+    fused = d * h * w if infer.untiled else \
+        MAIN_ZTAP_SHAPE[0] * MAIN_ZTAP_SHAPE[1] * h * w
+    launches = read_launches()
+    constant = bytes_per_voxel(model)
+    rec = {"arch": arch, "forward_ms": start.elapsed_time(end),
+           "peak_bytes": peak, "fused_input_voxels": fused,
+           "peak_bytes_per_fused_input_voxel": peak / fused,
+           "bytes_per_voxel_bf16_constant": constant,
+           "ztap_bf16_launches": launches["ztap_dilated_conv_bf16"],
+           "ztap_f32_launches": launches["ztap_dilated_conv"]}
+    ok = bool(torch.isfinite(hm).all()) and peak / fused <= constant \
+        and launches["ztap_dilated_conv_bf16"] > 0 \
+        and launches["ztap_dilated_conv"] == 0
+    return rec, ok
+
+
+def phase_bf16_models():
+    """unet_4, unetw_3 and res3d_2 with seeded weights under bf16: the
+    card's forward against the CPU's on a small volume, and one full-size
+    forward on the card (``bf16_full_forward``)."""
+    rec = {"phase": "bf16_models"}
+    failed = []
+    for arch, shape in (("unet_4", (12, 64, 64)), ("unetw_3", (12, 64, 64)),
+                        ("res3d_2", (8, 64, 64))):
+        small, ok_small = bf16_forward_card_vs_cpu(arch, shape)
+        full, ok_full = bf16_full_forward(arch)
+        rec[arch] = {"card_vs_cpu": small, "full": full}
+        if not (ok_small and ok_full):
+            failed.append(arch)
+        torch.cuda.empty_cache()
+    emit(rec)
+    if failed:
+        raise RuntimeError(f"bf16 models failed: {failed}: {rec}")
+    return rec
+
+
+def _bf16_step_batch(sd, batch):
+    """One batch's readings for ``bf16_step_card_vs_cpu``: the four steps'
+    losses, and each pair's largest gradient distance (with its tensor) of
+    the step's largest and of each tensor's largest, and the BN
+    statistics' worst share of their bar."""
+    runs = {}
+    for device, dtype in ((DEVICE, "bfloat16"), ("cpu", "bfloat16"),
+                          (DEVICE, "float32"), ("cpu", "float32")):
+        dcfg = Config(task="semi", arch="unet_4", contrastive=False,
+                      dtype=dtype).finalize()
+        model = create_detector(dcfg)
+        model.load_state_dict(sd)
+        model.to(device)
+        state = TrainState(model, dcfg.lr)
+        m = make_train_step(model, dcfg)(
+            state, {k: torch.from_numpy(v).to(device)
+                    for k, v in batch.items()})
+        runs[device, dtype] = {
+            "loss": float(m["loss"]),
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "stats": {n: b.detach().cpu() for n, b in model.named_buffers()
+                      if "running" in n}}
+    card, cpu = runs[DEVICE, "bfloat16"], runs["cpu", "bfloat16"]
+    card32, cpu32 = runs[DEVICE, "float32"], runs["cpu", "float32"]
+    top = max(float(g.abs().max()) for g in cpu32["grads"].values())
+    floor = BF16_NEAR_ZERO * top
+
+    def worst(a, b, of_step):
+        """(the largest distance over the tensors, its tensor) of the
+        step's largest, or of each tensor's largest (floored)."""
+        return max((_rel_err(a[n], b[n], top if of_step else max(
+            float(b[n].abs().max()), floor)), n) for n in b)
+
+    rec = {"loss": {f"{d}_{t}": r["loss"] for (d, t), r in runs.items()}}
+    for key, of_step in (("of_step", True), ("per_tensor", False)):
+        rec[f"grad_{key}"] = {
+            "card_vs_cpu_bf16": worst(card["grads"], cpu["grads"], of_step),
+            "cpu_bf16_vs_f32": worst(cpu["grads"], cpu32["grads"], of_step),
+            "card_bf16_vs_f32": worst(card["grads"], card32["grads"],
+                                      of_step),
+            "card_vs_cpu_f32": worst(card32["grads"], cpu32["grads"],
+                                     of_step)}
+    rec["bn_worst_share"] = max(
+        _rel_err(card["stats"][n], cpu["stats"][n])
+        / (2 * _rel_err(cpu["stats"][n], cpu32["stats"][n]) + BF16_FLOOR)
+        for n in cpu32["stats"])
+    return rec
+
+
+def bf16_step_card_vs_cpu(work, ckpt):
+    """One ``semi`` step (PU focal, contrastive off: the gram kernels take
+    float32 whatever the dtype) of unet_4 from ``ckpt`` on each of
+    BF16_STEP_SEEDS' batches of the main path's crops, in bf16 and in
+    float32 on the card and on the CPU: the loss, each gradient and each
+    BatchNorm running statistic. Gated, of the step's largest gradient, on
+    every batch: the float32 steps card against CPU within STEP_GRAD_TOL
+    (the witnesses agree) and each bf16 step within BF16_OWN_MAX of its own
+    device's float32 step; over the batches, the bf16 steps card against
+    CPU within STEP_GRAD_TOL plus twice the CPU's largest own
+    bf16-vs-float32 distance (Queue 3's "Adam's first step", float32 the
+    witness of bf16 as float64 is of float32; of the step's largest, since
+    a bf16 rounding that flips a max-pool's or a ReLU's choice moves a
+    small tensor's gradient by as much as bf16 does: PERF.md §6, PR 15
+    calls 5-6). The bar takes the CPU's distance only: with the card's in
+    it, the triangle inequality would bound the card's bf16 step by the
+    bar whatever it computed. It takes the largest over the batches since
+    one batch's reading spreads from 0.0045 to 0.137 of the step, and a
+    card step that differs by rounding alone lies up to 0.87 of a
+    one-batch bar (PERF.md §6). BN statistics within twice the CPU's own
+    distance plus BF16_FLOOR. Reported: each batch's readings, of each
+    tensor's largest too. Returns the record (``ok`` inside)."""
+    sd = load_checkpoint(ckpt, arch="unet_4")
+    cfg = Config(task="semi", arch="unet_4", contrastive=False,
+                 data_dir=work, order="zxy", root_dir=work).finalize()
+    ds = RefineDataset(cfg, "train")
+    batches = [_bf16_step_batch(sd, ds.sample_batch(
+        np.random.default_rng(seed), list(range(BF16_STEP_BATCH))))
+        for seed in BF16_STEP_SEEDS]
+    of_step = [{k: v[0] for k, v in b["grad_of_step"].items()}
+               for b in batches]
+    rec = {"phase": "bf16_step", "seeds": list(BF16_STEP_SEEDS),
+           "what": "one semi step (contrastive off) a batch from the main "
+           "path's model_best.pth: bf16 card against bf16 CPU, each "
+           "device's float32 step the witness", "batches": batches}
+    rec["grad_bar"] = STEP_GRAD_TOL + 2 * max(
+        g["cpu_bf16_vs_f32"] for g in of_step)
+    rec["grad_share"] = max(g["card_vs_cpu_bf16"]
+                            for g in of_step) / rec["grad_bar"]
+    rec["own_max"] = max(max(g["cpu_bf16_vs_f32"], g["card_bf16_vs_f32"])
+                         for g in of_step)
+    rec["f32_card_vs_cpu_max"] = max(g["card_vs_cpu_f32"] for g in of_step)
+    rec["bn_worst_share"] = max(b["bn_worst_share"] for b in batches)
+    rec["ok"] = all(math.isfinite(v) for b in batches
+                    for v in b["loss"].values()) \
+        and rec["f32_card_vs_cpu_max"] <= STEP_GRAD_TOL \
+        and rec["own_max"] <= BF16_OWN_MAX \
+        and rec["grad_share"] <= 1.0 and rec["bn_worst_share"] <= 1.0
+    emit(rec)
+    return rec
+
+
+def phase_bf16(work, names, planted, f32_rec):
+    """``--dtype bfloat16`` on the main path: ``test`` of the main path's
+    ``model_best.pth`` (F1 gated as the float32 path's; its ``_hm.mrc``
+    against the float32 ``test``'s, reported), its device ms by stage and
+    peak memory; ``train`` (semi, unet_4, the smoke's schedule) then
+    ``test`` of its ``model_best.pth`` (losses finite and falling, gram
+    launches equal to the steps, F1 gated); one step card against CPU.
+    Returns (record, launches of the bf16 runs)."""
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(work, "exp", "semi", "default", "model_best.pth")
+    test = phase_main_path(work, names, planted, phase="bf16_test",
+                           dtype="bfloat16", out_exp_id="bf16_test")
+    hm_diff = {}
+    for name in names:
+        a = read_mrc(os.path.join(work, "exp", "semi", "bf16_test", "output",
+                                  f"{name}_hm.mrc"))
+        b = read_mrc(os.path.join(work, "exp", "semi", "default", "output",
+                                  f"{name}_hm.mrc"))
+        hm_diff[name] = float(np.abs(a - b).max())
+    emit({"phase": "bf16_test_vs_f32", "what": "max |hm bf16 - hm f32| "
+          "of test on the main path's model_best.pth, reported",
+          "hm_max_abs_diff": hm_diff, "f1_bf16": test["f1"],
+          "f1_f32": f32_rec["f1"]})
+    breakdown = phase_breakdown(ckpt, dtype="bfloat16")
+
+    common = ["--task", "semi", "--arch", "unet_4", "--order", "zxy",
+              "--data_dir", work, "--root_dir", work, "--device", DEVICE,
+              "--dtype", "bfloat16"]
+    with captured_gram(train_losses, "gram_row_stats") as kept:
+        lines, launches, wall = run_cli(
+            ["train", *common, "--exp_id", "bf16", "--num_epochs",
+             str(TRAIN_EPOCHS), "--val_intervals", "1"])
+    check_train_gram("train_bf16", "row", kept)
+    steps = {}
+    means, rates = _epoch_lines(lines, steps)
+    losses = [means[e]["loss"] for e in sorted(means) if "loss" in means[e]]
+    n_steps = sum(steps.values())
+    train = {"phase": "bf16_train", "arch": "unet_4", "dtype": "bfloat16",
+             "epochs": TRAIN_EPOCHS, "steps": n_steps, "launches": launches,
+             "epoch_means": means, "steady_samples_per_s": rates,
+             "cli_wall_s": wall}
+    emit(train)
+    gram = launches["gram_row_stats"]
+    if not all(math.isfinite(v) for v in losses) or len(losses) < 2 \
+            or not losses[-1] < losses[0]:
+        raise RuntimeError(f"bf16 train loss not finite and falling: "
+                           f"{losses}")
+    if gram["fwd"] != n_steps or gram["bwd"] != n_steps \
+            or launches["ztap_dilated_conv_bf16"] == 0 \
+            or launches["ztap_dilated_conv"] != 0:
+        raise RuntimeError(f"bf16 train launches {launches} (steps "
+                           f"{n_steps})")
+    trained = phase_main_path(work, names, planted, exp_id="bf16",
+                              phase="bf16_train_test", dtype="bfloat16")
+    step = bf16_step_card_vs_cpu(work, ckpt)
+    if not step["ok"]:
+        raise RuntimeError(f"bf16 step card vs CPU: {step}")
+    rec = {"test": test, "breakdown": breakdown, "train": train,
+           "train_test": trained, "step": step,
+           "wall_s": time.perf_counter() - t_phase}
+    return rec
+
+
+def start_doctor():
+    """Start ``doctor`` on the card in a process of its own (this one has
+    turned TF32 off, a fresh one has not); ``phase_doctor`` waits for it.
+    It runs beside the model phases: its kernel smoke takes little of the
+    card, and their checks compare values, not times. Returns (start
+    time, process); the process is killed at exit if still running."""
+    proc = subprocess.Popen(
         [sys.executable, "-m", "cet_pick_tpu_torch", "doctor"],
-        capture_output=True, text=True, timeout=600,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return time.perf_counter(), proc
+
+
+def phase_doctor(started):
+    """``doctor``'s outcome (``start_doctor``): exit 0 and ``healthy``
+    true."""
+    t0, proc = started
+    out, err = proc.communicate(timeout=600)
     wall = time.perf_counter() - t0
-    lines = proc.stdout.splitlines()
+    lines = out.splitlines()
     report = json.loads(lines[-1]) if lines else {}
     emit({"phase": "doctor", "rc": proc.returncode, "report": report,
           "cli_wall_s": wall})
     if proc.returncode != 0 or report.get("healthy") is not True \
             or report.get("backend") != "cuda":
         raise RuntimeError(f"doctor exited {proc.returncode}: {report} "
-                           f"{proc.stderr[-2000:]}")
+                           f"{err[-2000:]}")
     return report
 
 
@@ -4461,6 +4587,19 @@ def _ztap_entry(name, rec, launches, launches_in_train, **more_launches):
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "bound_fp32_ms": rec["bound_fp32_ms"],
+            "library_ms": rec["library_ms"], "shape": rec["shape"]}
+
+
+def _ztap_bf16_entry(name, rec, launches, **more):
+    return {"name": name, "route": "cuda",
+            "source": "cet_pick_tpu_torch/csrc/ztap_conv.cu",
+            "replaces": "cet_pick_tpu/ops/pallas_head.py:95",
+            "dtype": "bfloat16", "launches": launches, **more,
+            "max_abs_err": rec["max_abs_err"],
+            "equal_share": rec["equal_share"],
+            "worst_share_of_allowance": rec["worst_share_of_allowance"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"]}
 
 
@@ -4605,27 +4744,44 @@ def main(argv=None):
         print(smi)
         return 0
     ztap = phase_kernels(peaks)
+    ztap_bf16 = phase_bf16_kernels(peaks)
     gram = phase_gram(peaks)
-    phase_doctor()
-    for arch in ("unet_4", "unetw_3"):
-        phase_model(arch)
-    for arch in ("res3d_2", "res3dref_18"):
-        phase_model_3d(arch)
     walls = {}
-    t_phase = time.perf_counter()
-    graft_rec = phase_graft_entry()
-    walls["graft_entry"] = time.perf_counter() - t_phase
-    t_phase = time.perf_counter()
-    phase_explore_model()
-    walls["explore_model"] = time.perf_counter() - t_phase
-    t_phase = time.perf_counter()
-    phase_vol_model()
-    walls["vol_model"] = time.perf_counter() - t_phase
     with tempfile.TemporaryDirectory() as work:
+        # beside the model phases, which gate values and time only their
+        # forwards: doctor, and the exploration recs drawn on the host
+        # (numpy, ~25 s), each in a process of its own; the train, test
+        # and exploration rates come after both
+        doctor = start_doctor()
+        pool = ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        atexit.register(pool.shutdown, cancel_futures=True)
+        explore_written = pool.submit(write_explore_data, work)
+        for arch in ("unet_4", "unetw_3"):
+            phase_model(arch)
+        for arch in ("res3d_2", "res3dref_18"):
+            phase_model_3d(arch)
+        bf16_models = phase_bf16_models()
+        t_phase = time.perf_counter()
+        graft_rec = phase_graft_entry()
+        walls["graft_entry"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        phase_explore_model()
+        walls["explore_model"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        phase_vol_model()
+        walls["vol_model"] = time.perf_counter() - t_phase
+        phase_doctor(doctor)
+        t_phase = time.perf_counter()
+        explore_data = explore_written.result()
+        pool.shutdown()
+        walls["explore_data_wait"] = time.perf_counter() - t_phase
         names, planted = write_data(work)
         _, train_launches, pn_launches = phase_train(work)
-        phase_train_breakdown(work)
         main_rec = phase_main_path(work, names, planted)
+        t_phase = time.perf_counter()
+        bf16_rec = phase_bf16(work, names, planted, main_rec)
+        walls["bf16"] = time.perf_counter() - t_phase
         watch_rec = phase_watch(work, names, main_rec)
         profile_rec = phase_test_profile(work, names)
         t_phase = time.perf_counter()
@@ -4644,12 +4800,13 @@ def main(argv=None):
         cr_launches = phase_train_supervised(work)
         phase_train_classify(work)
         _, freeze_launches = phase_freeze(work)
+        # the report-only train-step breakdowns (unet_4, unetw_3), explore
+        # step breakdowns (2d3d, vol) and unetw_3's test breakdown (PERF.md
+        # §5 keeps their last readings), the ddp phase's noise draws and
+        # fewshot_step's noise readings made way for the bf16 phase
         _, unetw_train = phase_train_unetw(work)
-        phase_train_breakdown(work, "unetw_3")
         unetw_rec = phase_main_path(work, names, planted, "unetw_3", "unetw",
                                     phase="unetw_test")
-        phase_breakdown(os.path.join(work, "exp", "semi", "unetw",
-                                     "model_best.pth"), "unetw_3")
         _, sc_launches = phase_train_semiclass(work)
         _, sc_pn_launches = phase_train_semiclass(work, pn=True)
         cls_pn = phase_classify_test(work, names, planted,
@@ -4661,12 +4818,10 @@ def main(argv=None):
                                      ckpt="model_best.pth", gate=False,
                                      task="semi3d")
         t_phase = time.perf_counter()
-        explore_data = write_explore_data(work)
         sizes = explore_mining(work)
         walls["explore_data"] = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
         phase_explore(work)
-        phase_explore_breakdown()
         phase_embed(work, explore_data, sizes["2d3d"])
         phase_cluster(work, explore_data)
         phase_scan(work, explore_data)
@@ -4682,7 +4837,6 @@ def main(argv=None):
                             ["--num_iters", str(VOL_ITERS)])
         walls["explore_vol"] = time.perf_counter() - t_phase
         for label, fn, fn_args in (
-                ("explore_breakdown_vol", phase_explore_breakdown, ("vol",)),
                 ("embed_vol", phase_embed,
                  (work, explore_data, vol["training_samples"], "vol")),
                 ("moco", phase_moco, (work, explore_data, sizes["2d"])),
@@ -4738,6 +4892,20 @@ def main(argv=None):
                     semi3d_rec["launches"]["ztap_dilated_conv"],
                     semi3d_train["ztap_dilated_conv"]),
     ]
+    kernels += [_ztap_bf16_entry(
+        "ztap_dilated_conv_bf16", ztap_bf16["unet"],
+        bf16_rec["test"]["launches"]["ztap_dilated_conv_bf16"],
+        launches_in_train=bf16_rec["train"]["launches"][
+            "ztap_dilated_conv_bf16"],
+        launches_in_train_test=bf16_rec["train_test"]["launches"][
+            "ztap_dilated_conv_bf16"],
+        launches_in_breakdown_forward=bf16_models["unet_4"]["full"][
+            "ztap_bf16_launches"]),
+        _ztap_bf16_entry(
+        "ztap_dilated_conv_bf16[C=F=128]", ztap_bf16["unetw"],
+        bf16_models["unetw_3"]["full"]["ztap_bf16_launches"],
+        launches_from="a seeded unetw_3's fused 256x512x512 forward "
+                      "(bf16_models)")]
     ddp_launches = ddp_rec["launches"]
     kernels += _gram_entries("gram_row_stats", gram["row"],
                              train_launches["gram_row_stats"], 92, 109,

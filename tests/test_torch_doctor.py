@@ -29,8 +29,8 @@ def test_doctor_cpu_reports_healthy(capsys, argv):
     assert JAX_KEYS <= set(report) and "torch_version" in report
     assert report["healthy"] is True and report["backend"] == "cpu"
     assert set(report["kernel_smoke"]) == {
-        "ztap_dilated_conv", "gram_row_stats", "gram_logit_stats",
-        "gram_supcon_v2_stats"}
+        "ztap_dilated_conv", "ztap_dilated_conv_bf16", "gram_row_stats",
+        "gram_logit_stats", "gram_supcon_v2_stats"}
     assert all(c["ok"] for c in report["kernel_smoke"].values())
 
 

@@ -71,11 +71,12 @@ def refine_batch(pn=False, p=2, b=4, d=6, hw=16, down=2, seed=0,
             "flip_prob": rng.random(b).astype(np.float32)}
 
 
-def refine_config(case, batch_size=4):
+def refine_config(case, batch_size=4, compute="float32"):
+    """The case's config; ``compute`` is its ``--dtype``."""
     spec = REFINE[case]
     return Config(task=spec["task"], arch="unet_2", contrastive=True,
-                  pn=spec["pn"], ge=spec["ge"],
-                  batch_size=batch_size).finalize()
+                  pn=spec["pn"], ge=spec["ge"], batch_size=batch_size,
+                  dtype=compute).finalize()
 
 
 def _model(cfg, workdir, case, dtype):
@@ -100,10 +101,10 @@ def _grads(model):
             if p.grad is not None}
 
 
-def run_refine(case, workdir, dtype):
+def run_refine(case, workdir, dtype, compute="float32"):
     from cet_pick_tpu_torch.train import refine
 
-    cfg = refine_config(case)
+    cfg = refine_config(case, compute=compute)
     model = _model(cfg, workdir, case, dtype)
     spec = REFINE[case]
     batch = {k: torch.from_numpy(v).to(dtype) for k, v in D.local_batch(
@@ -115,6 +116,12 @@ def run_refine(case, workdir, dtype):
     metrics = refine.make_train_step(model, cfg)(state, batch)
     return {"metrics": metrics, "grads": _grads(model),
             "stats": _stats(model), "naive_loss": naive.detach()}
+
+
+def run_refine_bf16(case, workdir, dtype):
+    """The default ``semi`` step under ``--dtype bfloat16``: float32
+    parameters (``dtype``), bf16 compute, the seeded weights."""
+    return run_refine("semi", workdir, dtype, compute="bfloat16")
 
 
 def _result(model, metrics, naive, **extra):
@@ -374,12 +381,13 @@ CASES.update(cr=run_supervised, tomo=run_supervised, tcla=run_classify,
              explore_2d3d=run_explore, explore_2d=run_explore,
              moco=run_moco, moco_sym=run_moco, scan_ft=run_scan,
              scan_selflabel=run_scan, denoise=run_denoise,
-             tiled=run_tiled, global_sum=run_global_sum)
+             tiled=run_tiled, global_sum=run_global_sum,
+             semi_bf16=run_refine_bf16)
 # dtypes each case runs in: float32, the program's, and float64, in which
 # the DP step and the single-process step agree up to rounding of 1e-14
 # (the V2 gram of ``cr`` takes float32 only)
 DTYPES = {"global_sum": (torch.float64,), "cr": (torch.float32,),
-          "tiled": (torch.float32,)}
+          "tiled": (torch.float32,), "semi_bf16": (torch.float32,)}
 BOTH = (torch.float32, torch.float64)
 
 
