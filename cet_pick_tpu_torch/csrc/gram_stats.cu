@@ -123,6 +123,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -261,15 +262,6 @@ __device__ __forceinline__ void wgmma_k8(float (&d)[16], uint64_t a,
       : "memory");
 }
 
-// Pin d's registers here: no read or write of them moves across this point
-// (across a wgmma issue or wait, which ptxas would then have to
-// serialize).
-template <int D>
-__device__ __forceinline__ void fence_regs(float (&d)[D]) {
-#pragma unroll
-  for (int i = 0; i < D; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (= or +=) the products of one 32-channel plane p of the split tiles:
 // the small terms lo.hi and hi.lo of its 4 k steps first, while d holds
 // only them, then hi.hi (the first product overwrites d unless `add`).
@@ -306,12 +298,12 @@ __device__ __forceinline__ void sims_wgmma(float (&d)[D], const float* ahi,
                                            const float* alo, const float* bhi,
                                            const float* blo) {
   auto run = [&](auto& acc, int p) {
-    fence_regs(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
     plane_wgmma(acc, ahi, alo, bhi, blo, p, false);
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_regs(acc);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
   };
   run(d, 0);
 #pragma unroll

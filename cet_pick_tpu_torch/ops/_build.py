@@ -54,15 +54,17 @@ def library_path(name: str) -> str:
 def build_libraries(names: Sequence[str]) -> Dict[str, Tuple[str, str]]:
     """Build every named source that has no up-to-date library, one ``nvcc``
     per source, all started together. Returns ``{name: (path, log)}`` where
-    ``log`` is the compiler's output (ptxas register / spill report), empty
-    for a library that was already built. Raises if any build fails."""
+    ``log`` is the compiler's output (ptxas register / spill report), kept
+    beside the library (``<library>.log``) so that a library built earlier
+    reports it too. Raises if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     out = {}
     for name in names:
         path = library_path(name)
-        if os.path.exists(path):
-            out[name] = (path, "")
+        if os.path.exists(path) and os.path.exists(path + ".log"):
+            with open(path + ".log") as f:
+                out[name] = (path, f.read())
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -77,7 +79,13 @@ def build_libraries(names: Sequence[str]) -> Dict[str, Tuple[str, str]]:
             os.unlink(tmp)
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
-        os.replace(tmp, path)  # atomic: a concurrent build never sees a partial file
+        # the log first, then the library, each atomically: a concurrent
+        # build never sees a partial file, nor a library without its log
+        fd, tmp_log = tempfile.mkstemp(suffix=".log", dir=BUILD_DIR)
+        with os.fdopen(fd, "w") as f:
+            f.write(log)
+        os.replace(tmp_log, path + ".log")
+        os.replace(tmp, path)
         out[name] = (path, log)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))

@@ -30,6 +30,12 @@ or (B, M). Gradients flow to ``feats`` only.
   partials (``gram_fwd_reduce_plain`` is its plain version); ``bwd``, the
   fused backward (dF = (W + W^T).F in one pass); and ``bwd_reduce``, the
   fixed-order sum of the backward's partials.
+* Widths: the kernels take C <= 128. A CUDA tensor of C % 4 != 0 (as
+  at ``--head_conv 10``) is padded with zero channels to a multiple of 4
+  (``kernel_width``; the kernels' rows are 16-byte copies), which adds
+  nothing to a dot product; its gradient is cut back to C by autograd.
+  C > 128 (``--head_conv 256``) raises on the card: the kernels' operand
+  tiles do not fit in shared memory there yet (ROADMAP, kernel queue).
 * A CPU tensor takes the plain version, ``gram_row_stats_plain`` /
   ``gram_logit_stats_plain`` / ``gram_supcon_v2_stats_plain``: dense torch
   in row blocks (matmul, exp, masked sums), each block under
@@ -45,6 +51,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from cet_pick_tpu_torch.ops._build import load_library
@@ -348,6 +355,12 @@ def _check_same(feats, *arrays):
                              f"{tuple(a.shape)}")
 
 
+def kernel_width(c):
+    """The C at which the kernels run features of ``c`` channels: ``c`` up
+    to a multiple of 4, zeros past it."""
+    return -(-c // 4) * 4
+
+
 def _prepare(feats, masks):
     """Check the inputs and give them a batch axis. Returns (feats, masks,
     squeeze) with feats (B, M, C) and masks (B, M)."""
@@ -365,9 +378,11 @@ def _prepare(feats, masks):
     _check_same(feats, *masks)
     if feats.device.type == "cuda":
         c = feats.shape[2]
-        if c > _MAX_C or c % 4:
-            raise ValueError(f"the gram kernels take C <= {_MAX_C} with "
-                             f"C % 4 == 0, got C={c}")
+        if c > _MAX_C:
+            raise ValueError(f"the gram kernels take C <= {_MAX_C}, got "
+                             f"C={c}")
+        if kernel_width(c) != c:
+            feats = F.pad(feats, (0, kernel_width(c) - c))
         if any(t.data_ptr() % 16 for t in (feats, *masks)):
             raise ValueError("gram: tensors must be 16-byte aligned")
     elif feats.device.type != "cpu":

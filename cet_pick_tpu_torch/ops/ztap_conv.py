@@ -11,8 +11,17 @@ The kernel is the float32 parameter; x is float32, or bfloat16 under
   hand-written Hopper kernel in ``csrc/ztap_conv.cu``, built by nvcc at
   first use (``ops/_build.py``): float32 x the 3xTF32 implicit GEMM, which
   adds one to ``ztap_dilated_conv.launches``; bfloat16 x the bf16 one
-  (``ztap_dilated_conv_bf16``, its own count). A CPU tensor takes the
-  plain version. Any other input raises.
+  (wgmma fed by TMA; ``ztap_dilated_conv_bf16``, its own count). A CPU
+  tensor takes the plain version. Any other input raises.
+* Widths: the kernels run every ``--head_conv`` width that JAX runs. A
+  CUDA tensor of a width off a kernel's instantiations is padded with
+  zeros up to one (``kernel_widths(c, f, dtype)``: the float32 kernel
+  takes C % 4 == 0 and F = 16 or a multiple of 32, the bfloat16 kernel
+  C % 8 == 0, TMA's 16-byte strides, and any F); zero channels and zero
+  outputs add nothing, so the result is the unpadded one. Padding x's
+  channels copies x, and padding F writes F's pad and then copies the
+  first F outputs out. Both kernels take 1 <= dilation <= 8; another
+  dilation raises on the card.
 * ``ztap_dilated_conv_plain`` is the plain PyTorch version: the z-tap form
   of the JAX ``_ZTapDilatedConv`` (models/detector.py:56-79) — one 2D
   dilated conv with 3F outputs, then a shifted z-add, then the ReLU. The CPU
@@ -31,8 +40,8 @@ import torch.nn.functional as F
 
 from cet_pick_tpu_torch.ops._build import load_library
 
-_KERNEL_GROUP = 32  # the CUDA kernel takes F = 16 or a multiple of this
-_MAX_DILATION = 8  # and a halo of at most this many pixels
+_F32_GROUP = 32  # the float32 kernel takes F = 16 or a multiple of this
+_MAX_DILATION = 8  # the kernels take a halo of at most this many pixels
 # The bar of a bf16 z-tap against another computation of it (the kernel
 # against its plain version, the plain version against JAX's). Only the
 # order of the f32 sums behind each rounding differs; that moves a
@@ -132,8 +141,39 @@ def _check(x, kernel):
             f"kernel (got {x.dtype}, {kernel.dtype})")
     if x.device != kernel.device:
         raise ValueError(f"x on {x.device}, kernel on {kernel.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ztap_dilated_conv runs on cuda or cpu, not "
+                         f"{x.device}")
     if not (x.is_contiguous() and kernel.is_contiguous()):
         raise ValueError("ztap_dilated_conv wants contiguous x and kernel")
+
+
+def kernel_widths(c, f, dtype=torch.float32):
+    """(C, F) at which the CUDA kernel of ``dtype`` runs a z-tap of C =
+    ``c`` inputs and F = ``f`` outputs: C up to a multiple of 4 (float32)
+    or 8 (bfloat16), and F, float32 only, up to 16 or a multiple of 32.
+    The wrappers pad with zeros to these widths."""
+    if dtype == torch.bfloat16:
+        return -(-c // 8) * 8, f
+    fp = 16 if f <= 16 else -(-f // _F32_GROUP) * _F32_GROUP
+    return -(-c // 4) * 4, fp
+
+
+def _padded(x, kernel, cp, fp):
+    """x and the kernel with zero channels up to C = ``cp`` and zero
+    outputs up to F = ``fp``."""
+    c, f = kernel.shape[3], kernel.shape[4]
+    if cp != c:
+        x = F.pad(x, (0, cp - c))
+    if cp != c or fp != f:
+        kernel = F.pad(kernel, (0, fp - f, 0, cp - c))
+    return x, kernel
+
+
+def _check_dilation(dilation):
+    if not 1 <= dilation <= _MAX_DILATION:
+        raise ValueError(f"the CUDA z-tap kernels take 1 <= dilation <= "
+                         f"{_MAX_DILATION}, got {dilation}")
 
 
 def ztap_dilated_conv(x, kernel, *, dilation: int = 4, relu: bool = True):
@@ -149,9 +189,12 @@ def ztap_dilated_conv(x, kernel, *, dilation: int = 4, relu: bool = True):
     if x.device.type == "cpu":
         return ztap_dilated_conv_plain(x, kernel, dilation=dilation,
                                        relu=relu)
-    y = _launch(x, kernel, "f32", 4, dilation, relu)
+    _check_dilation(dilation)
+    f = kernel.shape[4]
+    x, kernel = _padded(x, kernel, *kernel_widths(x.shape[4], f))
+    y = _launch(x, kernel, kernel.shape[4], "f32", dilation, relu)
     ztap_dilated_conv.launches += 1
-    return y
+    return y if y.shape[4] == f else y[..., :f].contiguous()
 
 
 def ztap_dilated_conv_bf16(x, kernel, *, dilation: int = 4,
@@ -167,27 +210,56 @@ def ztap_dilated_conv_bf16(x, kernel, *, dilation: int = 4,
     if x.device.type == "cpu":
         return ztap_dilated_conv_plain(x, kernel, dilation=dilation,
                                        relu=relu)
-    # (kz, ky, kx, C, F) -> bf16 (kz, ky, kx, F, C): an output's channels
-    # contiguous, as the kernel stages them
-    kb = kernel.to(torch.bfloat16).transpose(3, 4).contiguous()
-    y = _launch(x, kb, "bf16", 8, dilation, relu)
+    _check_dilation(dilation)
+    x, kernel = _padded(x, kernel, *kernel_widths(
+        x.shape[4], kernel.shape[4], torch.bfloat16))
+    plan = _bf16_plan(x.shape[4], kernel.shape[4], int(dilation))
+    y = _launch(x, _pack_bf16(kernel, *plan), kernel.shape[4], "bf16",
+                dilation, relu)
     ztap_dilated_conv_bf16.launches += 1
     return y
 
 
-def _launch(x, kernel, suffix, c_align, dilation, relu):
-    """Launch the ``suffix`` kernel on CUDA tensors; returns y."""
-    if x.device.type != "cuda":
-        raise ValueError(f"ztap_dilated_conv runs on cuda or cpu, not "
-                         f"{x.device}")
+@functools.cache
+def _bf16_plan(c, f, dilation):
+    """(walk, n): how the bf16 kernel runs C = c, F = f at ``dilation``
+    (``ztap_dilated_conv_bf16_plan`` in csrc/ztap_conv.cu): a walk over
+    runs of slices with FN = n outputs a z offset, or one output slice a
+    tile with outputs in groups of n."""
+    fn = load_library("ztap_conv").ztap_dilated_conv_bf16_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    err = fn(c, f, dilation, out)
+    if err:
+        raise RuntimeError(f"ztap_dilated_conv_bf16 takes no plan for C={c}, "
+                           f"F={f}, dilation={dilation}: CUDA error {err}")
+    return bool(out[0]), int(out[1])
+
+
+def _pack_bf16(kernel, walk, n):
+    """The float32 kernel (3, 3, 3, C, F) in bf16 as the bf16 kernel stages
+    it (``_bf16_plan``), zeros past C and F. C is cut into chunks of 32
+    channels, each two k16 steps (h) of two planes of 8 channels. The walk
+    keeps (chunk, h, plane, tap, kz FN + f, channel) resident, FN = n; one
+    output slice a tile stages (group, kz, ky, chunk, h, plane, kx, f,
+    channel) a (kz, ky, chunk) at a time, groups of n outputs."""
+    c, f = kernel.shape[3], kernel.shape[4]
+    chunks = -(-c // 32)
+    groups = 1 if walk else -(-f // n)
+    k = F.pad(kernel.to(torch.bfloat16),
+              (0, groups * n - f, 0, chunks * 32 - c))
+    k = k.reshape(3, 3, 3, chunks, 2, 2, 8, groups, n)
+    if walk:  # (chunk, h, plane, ky, kx, kz, f, channel)
+        return k[..., 0, :].permute(3, 4, 5, 1, 2, 0, 7, 6).reshape(
+            chunks, 2, 2, 9, 3 * n, 8).contiguous()
+    return k.permute(7, 0, 1, 3, 4, 5, 2, 8, 6).contiguous()
+
+
+def _launch(x, kernel, f, suffix, dilation, relu):
+    """Launch the ``suffix`` kernel on CUDA tensors of a shape it takes
+    (``kernel`` as that kernel reads it); returns y (B, D, H, W, f)."""
     b, d, h, w, c = x.shape
-    f = kernel.shape[3 if suffix == "bf16" else 4]
-    if not (f == 16 or f % _KERNEL_GROUP == 0) or c % c_align \
-            or not 1 <= dilation <= _MAX_DILATION:
-        raise ValueError(
-            f"the CUDA kernel takes F = 16 or a multiple of {_KERNEL_GROUP}, "
-            f"C % {c_align} == 0 and 1 <= dilation <= {_MAX_DILATION} (got "
-            f"C={c}, F={f}, dilation={dilation})")
     if x.data_ptr() % 16 or kernel.data_ptr() % 16:
         raise ValueError("ztap_dilated_conv wants 16-byte aligned tensors")
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):

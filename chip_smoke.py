@@ -285,14 +285,15 @@ The slice of data parallelism and multi-rank picking adds, after
 - bf16       ``--dtype bfloat16`` for the detector family:
              ``bf16_kernels`` (after the kernels phase) holds the bf16
              z-tap kernel against its plain version and a second launch
-             at C = F = 32 and 128 on the main-path shapes and two ragged
-             ones (``ops/ztap_conv.bf16_agreement``), with its time, the
-             plain version's, bf16 ``F.conv3d`` + ReLU's and the bound
+             at C = F = 32 and 128 on the main-path shapes and three
+             ragged ones (``ops/ztap_conv.bf16_agreement``), with its time,
+             the plain version's, bf16 ``F.conv3d`` + ReLU's, the bound
              (bf16 dense tensor cores, or 2 bytes in and 2 out a
-             voxel-channel); ``bf16_models`` (after the model phase):
-             unet_4, unetw_3 and res3d_2 with seeded weights, the card's
-             bf16 forward against the CPU's (within twice the CPU's own
-             bf16-vs-float32 distance plus BF16_FLOOR), and one fused
+             voxel-channel), its share of the bound and the build's
+             registers and spills; ``bf16_models`` (after the model
+             phase): unet_4, unetw_3 and res3d_2 with seeded weights, the
+             card's bf16 forward against the CPU's (within twice the CPU's
+             own bf16-vs-float32 distance plus BF16_FLOOR), and one fused
              256x512x512 forward each (peak bytes per fused input voxel
              within the model's bf16 constant, bf16 z-tap launches, no f32
              ones); ``bf16_test``: ``test --dtype bfloat16`` of the main
@@ -308,7 +309,12 @@ The slice of data parallelism and multi-rank picking adds, after
              gradient: the f32 steps within STEP_GRAD_TOL, each device's
              bf16 step within BF16_OWN_MAX of its f32 one, the bf16 ones
              within STEP_GRAD_TOL plus twice the CPU's largest
-             bf16-vs-f32 distance; each tensor's reported)
+             bf16-vs-f32 distance; each tensor's reported); ``widths``
+             (last): the ``--head_conv`` widths off the kernels'
+             instantiations, which the wrappers pad with zeros: unet_4's
+             eval forward at 48 and 12 in float32 and bf16 and one
+             contrastive train step at 10, card against CPU, every z-tap
+             and gram call a kernel launch; the gram at C = 256 raises
 
 The model phase also runs ``res3d_2`` and ``res3dref_18``: the card's
 untiled forward against the CPU's, and one untiled forward of a
@@ -379,8 +385,10 @@ from cet_pick_tpu_torch.ops.decode import tomo_decode
 from cet_pick_tpu_torch.ops.nms import sigmoid_clamped
 from cet_pick_tpu_torch.ops.ztap_conv import (
     BF16_EQUAL_SHARE,
+    _bf16_plan,
     bf16_agreement,
     bf16_rounding_allowance,
+    kernel_widths,
     ztap_dilated_conv,
     ztap_dilated_conv_bf16,
     ztap_dilated_conv_plain,
@@ -590,6 +598,7 @@ def phase_build():
     emit({"phase": "build", "seconds": seconds, "ptxas_warnings": warnings,
           "libraries": {n: os.path.basename(p) for n, (p, _) in built.items()},
           "ptxas": ptxas})
+    return ptxas
 
 
 def phase_kernels(peaks):
@@ -4165,7 +4174,8 @@ def phase_backproject(work):
 BF16_ZTAP_CASES = ((MAIN_ZTAP_SHAPE, 32, True, "unet"),
                    ((2, 5, 37, 45, 32), 32, False, None),
                    (UNETW_ZTAP_SHAPE, 128, True, "unetw"),
-                   ((1, 3, 11, 35, 8), 96, True, None))
+                   ((1, 3, 11, 35, 8), 96, True, None),
+                   ((1, 3, 11, 35, 48), 48, True, None))
 # A bf16 result against another computation of it in bf16 (card against
 # CPU, one run against another): within twice the reference's own
 # bf16-vs-float32 distance plus BF16_FLOOR, each distance the largest
@@ -4193,12 +4203,15 @@ def ztap_work_bf16(shape, f, dil=4):
     return flops, 2.0 * b * d * h * w * (c + f) + 4.0 * 27 * c * f
 
 
-def phase_bf16_kernels(peaks):
+def phase_bf16_kernels(peaks, ptxas):
     """The bf16 z-tap kernel against its plain version and against a second
     launch of itself, with times at the main-path shapes: the kernel, the
     plain version, ``F.conv3d`` + ReLU in bf16 (cuDNN, channels-last), and
     the bound (bf16 dense tensor cores, or 2 bytes in and 2 out a
-    voxel-channel). Returns {"unet": record, "unetw": record}."""
+    voxel-channel), its share of the bound, and the build's registers and
+    spills of the instantiation that ran (``ptxas``: phase_build's rows of
+    ztap_conv.cu; the registers are the launch's, before setmaxnreg gives
+    the consumers 232). Returns {"unet": record, "unetw": record}."""
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     main = {}
     for shape, f, relu, key in BF16_ZTAP_CASES:
@@ -4246,6 +4259,16 @@ def phase_bf16_kernels(peaks):
                        bound_tf32x3_ms=bounds(flops, nbytes, peaks)[
                            "bound_ms"],
                        achieved_tflops=flops / rec["ms"] / 1e9)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            walk, n = _bf16_plan(c, f, 4)
+            kname = f"ztap_conv_bf16_{'walk_' if walk else ''}kernel<{n}>"
+            # demangled by c++filt, or mangled where the card has none
+            pat = re.compile(rf"ztap_conv_bf16_{'walk_' if walk else ''}"
+                             rf"kernel(<{n}>|ILi{n}E)")
+            row = next((r for r in ptxas if pat.search(r["kernel"])), {})
+            rec["build"] = {"kernel": kname, **{
+                k: row.get(k) for k in ("registers", "spill_stores",
+                                        "spill_loads", "stack_bytes")}}
             main[key] = dict(rec)
         emit(rec)
         del x, k
@@ -4326,6 +4349,136 @@ def bf16_full_forward(arch):
     ok = bool(torch.isfinite(hm).all()) and peak / fused <= constant \
         and launches["ztap_dilated_conv_bf16"] > 0 \
         and launches["ztap_dilated_conv"] == 0
+    return rec, ok
+
+
+# --head_conv widths off the kernels' instantiations (ROADMAP Queue 3,
+# "Widths"), which the wrappers pad with zeros (ops/ztap_conv.kernel_widths,
+# ops/gram.kernel_width): unet_4's eval forward at each of WIDTHS_EVAL in
+# float32 and in bf16, and one contrastive train step at WIDTHS_TRAIN (the
+# gram at C = 10), card against CPU, every z-tap and gram call a launch.
+# The gram kernels take C <= 128: at WIDTHS_REFUSED the card raises.
+WIDTHS_EVAL = (48, 12)
+WIDTHS_TRAIN = 10
+WIDTHS_REFUSED = 256
+
+
+def widths_forward(head_conv):
+    """unet_4 at ``--head_conv``, seeded weights, eval forward of an
+    (8, 32, 32) volume: float32 card against CPU (hm probabilities within
+    CPU_TOL, proj within CPU_TOL of its largest), bf16 card against CPU
+    (``bf16_forward_card_vs_cpu``'s bar), and each card forward's z-tap
+    launches: one for each of the head's two layers, (32, head_conv) and
+    (head_conv, head_conv), run at ``kernel_widths``. (record, ok)"""
+    torch.manual_seed(0)
+    cfg = dict(task="semi", arch="unet_4", head_conv=head_conv)
+    sd = create_detector(Config(**cfg).finalize()).state_dict()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 32, 32)).astype(np.float32))[None]
+    outs, rec, ok = {}, {"head_conv": head_conv}, True
+    for device, dtype in ((DEVICE, "float32"), (DEVICE, "bfloat16"),
+                          ("cpu", "float32"), ("cpu", "bfloat16")):
+        model = create_detector(Config(**cfg, dtype=dtype).finalize())
+        model.load_state_dict(sd)
+        model.to(device).eval()
+        reset_launches()
+        with torch.inference_mode():
+            out = model(x.to(device))
+        outs[device, dtype] = {"hm": sigmoid_clamped(out["hm"]).cpu(),
+                               "proj": out["proj"].cpu()}
+        if device != DEVICE:
+            continue
+        torch.cuda.synchronize()
+        tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        fn = "ztap_dilated_conv" + ("_bf16" if dtype == "bfloat16" else "")
+        rec[dtype] = {"ztap_launches": read_launches()[fn],
+                      "kernel_widths": [
+                          kernel_widths(c, f, tdt)
+                          for c, f in ((32, head_conv),
+                                       (head_conv, head_conv))]}
+        ok &= rec[dtype]["ztap_launches"] == 2
+    card, cpu = outs[DEVICE, "float32"], outs["cpu", "float32"]
+    rec["float32"].update(
+        hm_max_abs_err=float((card["hm"] - cpu["hm"]).abs().max()),
+        proj_err_of_largest=_rel_err(card["proj"], cpu["proj"]),
+        bar=CPU_TOL)
+    ok &= rec["float32"]["hm_max_abs_err"] <= CPU_TOL \
+        and rec["float32"]["proj_err_of_largest"] <= CPU_TOL
+    for head in ("hm", "proj"):
+        card = outs[DEVICE, "bfloat16"][head]
+        cpu, cpu32 = outs["cpu", "bfloat16"][head], outs["cpu", "float32"][
+            head]
+        own = _rel_err(cpu, cpu32)
+        rec["bfloat16"][head] = {"card_vs_cpu": _rel_err(card, cpu),
+                                 "cpu_bf16_vs_f32": own,
+                                 "bar": 2 * own + BF16_FLOOR}
+        ok &= rec["bfloat16"][head]["card_vs_cpu"] <= 2 * own + BF16_FLOOR \
+            and bool(torch.isfinite(card).all())
+    return rec, ok
+
+
+def _widths_batch(crop_xy, seed=0):
+    """One ``semi`` batch of the train loop's layout, B = 1, P = 2 crops of
+    6 x crop_xy x crop_xy, planted positives in unlabeled ground."""
+    rng = np.random.default_rng(seed)
+    h = crop_xy // 2
+    x = rng.standard_normal((1, 2, 6, crop_xy, crop_xy)).astype(np.float32)
+    hm = np.full((1, 2, 6, h, h), -1.0, np.float32)
+    for p, (z, y, xx) in enumerate([(2, h // 3, h // 2), (3, h // 2, h // 4)]):
+        hm[0, p, z - 1:z + 2, y - 1:y + 2, xx - 1:xx + 2] = 0.4
+        hm[0, p, z, y, xx] = 1.0
+        x[0, p, z, 2 * y - 2:2 * y + 2, 2 * xx - 2:2 * xx + 2] -= 2.0
+    return {"input": x, "hm": hm, "flip_prob": np.array([0.3], np.float32)}
+
+
+def widths_train_step():
+    """One contrastive ``semi`` step of unet_4 at ``--head_conv``
+    WIDTHS_TRAIN from seeded weights on 6 x 32 x 32 crops, card against
+    CPU in float32: the loss within DDP_METRIC_TOL (relative), every
+    gradient within STEP_GRAD_TOL of the step's largest, and the card's
+    gram forward and backward launched (C = 10 padded to 12). Then the
+    gram at C = WIDTHS_REFUSED on the card: it raises. (record, ok)"""
+    torch.manual_seed(0)
+    cfg = Config(task="semi", arch="unet_4", head_conv=WIDTHS_TRAIN,
+                 contrastive=True).finalize()
+    sd = create_detector(cfg).state_dict()
+
+    def step(device, batch):
+        model = create_detector(cfg)
+        model.load_state_dict(sd)
+        model.to(device)
+        m = make_train_step(model, cfg)(TrainState(model, cfg.lr), {
+            k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        return float(m["loss"]), {n: p.grad.detach().cpu() for n, p in
+                                  model.named_parameters()
+                                  if p.grad is not None}
+
+    batch = _widths_batch(32)
+    reset_launches()
+    card_loss, card = step(DEVICE, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()["gram_row_stats"]
+    cpu_loss, cpu = step("cpu", batch)
+    top = max(float(g.abs().max()) for g in cpu.values())
+    rec = {"head_conv": WIDTHS_TRAIN, "gram_kernel_width":
+           G.kernel_width(WIDTHS_TRAIN), "gram_launches": launches,
+           "loss_card": card_loss, "loss_cpu": cpu_loss,
+           "loss_rel_err": abs(card_loss - cpu_loss) / max(abs(cpu_loss),
+                                                           1e-30),
+           "grad_err_of_step": max(_rel_err(card[n], cpu[n], top)
+                                   for n in cpu),
+           "bars": {"loss": DDP_METRIC_TOL, "grad": STEP_GRAD_TOL}}
+    ok = rec["loss_rel_err"] <= DDP_METRIC_TOL \
+        and rec["grad_err_of_step"] <= STEP_GRAD_TOL \
+        and launches["fwd"] > 0 and launches["bwd"] > 0
+    wide = torch.zeros((64, WIDTHS_REFUSED), device=DEVICE)
+    mask = torch.ones(64, device=DEVICE)
+    try:
+        G.gram_row_stats(wide, mask, mask, TEMP)
+        rec["refused_at_c"] = None
+    except ValueError as e:
+        rec["refused_at_c"] = {"c": WIDTHS_REFUSED, "error": str(e)}
+    ok &= rec["refused_at_c"] is not None
     return rec, ok
 
 
@@ -4509,10 +4662,32 @@ def phase_bf16(work, names, planted, f32_rec):
     step = bf16_step_card_vs_cpu(work, ckpt)
     if not step["ok"]:
         raise RuntimeError(f"bf16 step card vs CPU: {step}")
+    widths = phase_widths()
     rec = {"test": test, "breakdown": breakdown, "train": train,
-           "train_test": trained, "step": step,
+           "train_test": trained, "step": step, "widths": widths,
            "wall_s": time.perf_counter() - t_phase}
     return rec
+
+
+def phase_widths():
+    """The ``--head_conv`` widths off the kernels' instantiations
+    (``widths_forward``, ``widths_train_step``), run after the train and
+    bf16 steps, whose first backward on the card it then need not pay."""
+    t0 = time.perf_counter()
+    widths, failed = {"eval": []}, []
+    for head_conv in WIDTHS_EVAL:
+        w, ok = widths_forward(head_conv)
+        widths["eval"].append(w)
+        if not ok:
+            failed.append(f"eval {head_conv}")
+    widths["train"], ok = widths_train_step()
+    if not ok:
+        failed.append(f"train {WIDTHS_TRAIN}")
+    widths["wall_s"] = time.perf_counter() - t0
+    emit({"phase": "widths", **widths})
+    if failed:
+        raise RuntimeError(f"widths failed: {failed}")
+    return widths
 
 
 def start_doctor():
@@ -4600,6 +4775,7 @@ def _ztap_bf16_entry(name, rec, launches, **more):
             "worst_share_of_allowance": rec["worst_share_of_allowance"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "share_of_bound": rec["share_of_bound"], "build": rec["build"],
             "library_ms": rec["library_ms"], "shape": rec["shape"]}
 
 
@@ -4733,7 +4909,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     smi, name = phase_card()
     peaks = peaks_for(name)
-    phase_build()
+    ptxas = phase_build()
     if args.train_seeds or args.semiclass_seeds or args.denoise_runs:
         if args.train_seeds:
             train_seeds(args.train_seeds)
@@ -4744,7 +4920,7 @@ def main(argv=None):
         print(smi)
         return 0
     ztap = phase_kernels(peaks)
-    ztap_bf16 = phase_bf16_kernels(peaks)
+    ztap_bf16 = phase_bf16_kernels(peaks, ptxas["ztap_conv"])
     gram = phase_gram(peaks)
     walls = {}
     with tempfile.TemporaryDirectory() as work:

@@ -466,3 +466,49 @@ def test_cuda_forward_is_bit_identical(cuda_device, variant, b, m, c):
     fn, _, f, masks = _forward_case(variant, b, m, c, seed=11)
     a, z = (_forward(fn, f, masks, cuda_device) for _ in range(2))
     assert all(np.array_equal(x, y) for x, y in zip(a, z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["row", "logit", "v2"])
+@pytest.mark.parametrize("b,m,c", [(2, 300, 10), (1, 6144, 26)])
+def test_cuda_width_off_the_kernel_is_padded(cuda_device, variant, b, m, c):
+    """C % 4 != 0 (``--head_conv 10``) is padded with zero channels to
+    ``kernel_width``: the kernels launch, and forward and gradient (cut
+    back to C) are the plain version's, at the bars of
+    ``test_cuda_fused_backward_matches_plain`` (values at rtol 2e-5 with
+    the absolute bar scaled by the largest element, as the sums cancel;
+    gradients at GRAD, scaled alike)."""
+    f, pos, other, w = _fixture(m, c, b=b, seed=6)
+    fn, plain, n_out = _VARIANTS[variant]
+    masks = (pos,) if variant == "logit" else (pos, other)
+    w = (w * 2)[:n_out]
+    launches = dict(fn.launches)
+    got, grad = _torch_value_and_grad(fn, f, masks, w, device=cuda_device)
+    want, want_grad = _torch_value_and_grad(plain, f, masks, w,
+                                            device=cuda_device)
+    torch.cuda.synchronize()
+    assert fn.launches["fwd"] > launches["fwd"]
+    assert fn.launches["bwd"] > launches["bwd"]
+    assert grad.shape == f.shape
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(
+            g, r, rtol=2e-5, atol=1e-5 * max(1.0, float(np.abs(r).max())))
+    np.testing.assert_allclose(
+        grad, want_grad, rtol=GRAD["rtol"],
+        atol=GRAD["atol"] * max(1.0, float(np.abs(want_grad).max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["row", "logit", "v2"])
+def test_cuda_width_past_the_kernels_raises(cuda_device, variant):
+    """C > 128 (``--head_conv 256``): the kernels' operand tiles do not
+    fit in shared memory, and the card raises rather than run another
+    computation."""
+    f, pos, other, _ = _fixture(64, 256, seed=6)
+    fn = _VARIANTS[variant][0]
+    masks = (pos,) if variant == "logit" else (pos, other)
+    f, *masks = (torch.from_numpy(a).to(cuda_device) for a in (f, *masks))
+    launches = dict(fn.launches)
+    with pytest.raises(ValueError, match="C <= 128"):
+        fn(f, *masks, TEMP)
+    assert fn.launches == launches

@@ -137,3 +137,23 @@ def test_cuda_kernel_is_bit_identical(cuda_device, shape, f):
         second = ztap_dilated_conv(xt, kt)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f", [(32, 48), (12, 12), (10, 8), (44, 200)])
+def test_cuda_width_off_the_kernel_is_padded(cuda_device, c, f):
+    """F off 16 and the multiples of 32 (``--head_conv 48``, 12, 8) and
+    C % 4 != 0 are padded with zeros to the float32 kernel's widths
+    (``kernel_widths``): one launch, the plain version's result, the
+    first F outputs, contiguous."""
+    x, k = _inputs((1, 3, 16, 16, c), f)
+    x, k = torch.from_numpy(x).to(cuda_device), torch.from_numpy(k).to(
+        cuda_device)
+    launches = ztap_dilated_conv.launches
+    with torch.no_grad():
+        got = ztap_dilated_conv(x, k)
+        want = ztap_dilated_conv_plain(x, k)
+    torch.cuda.synchronize()
+    assert ztap_dilated_conv.launches == launches + 1
+    assert got.shape == want.shape and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
